@@ -25,4 +25,4 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from limbo_tpu_torch import acqui, kernels, means, models, ops, opt, utils  # noqa: E402,F401
+from limbo_tpu_torch import acqui, bo, kernels, means, models, ops, opt, utils  # noqa: E402,F401

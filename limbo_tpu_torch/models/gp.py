@@ -17,14 +17,20 @@ cache for large n.
 * **Multi-output convention** as limbo: one shared kernel matrix for all
   ``p`` outputs, observations (n, p), alpha (n, p).
 
-Not ported yet: ``log_lik``, ``log_marginal_likelihood`` and the LOO
-objectives (with hyperparameter learning), the cache's ``with_K`` / ``lite``
-forms and the ``"refined"`` update that needs ``with_K``.
+The objectives (``log_lik``, ``log_marginal_likelihood``, ``log_loo_cv``
+and ``log_loo_cv_fn``) are differentiable scalars: on the card at large N
+their factorization is the blocked Cholesky with the panel-factor kernel,
+and their gradient runs the Cholesky pullback through the tri-inv panel
+kernel (ops/chol.py).
+
+Not ported yet: the cache's ``with_K`` / ``lite`` forms and the
+``"refined"`` update that needs ``with_K``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -33,6 +39,7 @@ import torch
 from limbo_tpu_torch.kernels.base import effective_jitter
 from limbo_tpu_torch.means.means import prepare_mean
 from limbo_tpu_torch.ops.chol import cholesky, tri_inv
+from limbo_tpu_torch.ops.mirror import mirror_mm
 from limbo_tpu_torch.ops.trimv import trimv
 from limbo_tpu_torch.utils.device import resolve_device
 
@@ -263,17 +270,14 @@ def _clamp0(v: torch.Tensor) -> torch.Tensor:
 
 
 def _mirror_mm(ks: torch.Tensor, Kq: torch.Tensor) -> torch.Tensor:
-    """ks @ Kq in ks's dtype.  With a low-precision mirror Kq, ks is
-    rounded to Kq's dtype and the products are summed in ks's dtype, as the
-    reference's ``preferred_element_type`` dot does (gp.py:496-497): on the
-    card through the mixed-dtype GEMM, on the CPU by upcasting both operands
-    (the same exact products)."""
+    """ks @ Kq in ks's dtype.  With a bf16 mirror Kq, ks is rounded to bf16
+    and the exact products are summed in ks's dtype, as the reference's
+    ``preferred_element_type`` dot does (gp.py:496-497): the exact-sum
+    mirror kernel on the card (f32), the upcast product on the CPU
+    (ops/mirror.py)."""
     if Kq.dtype == ks.dtype:
         return ks @ Kq
-    kq = ks.to(Kq.dtype)
-    if ks.device.type == "cuda":
-        return torch.mm(kq, Kq, out_dtype=ks.dtype)
-    return kq.to(ks.dtype) @ Kq.to(ks.dtype)
+    return mirror_mm(ks, Kq)
 
 
 @dataclass
@@ -577,3 +581,104 @@ def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
     alpha = cache.ay - cache.u_ones[:, None] * mu_bar[None, :]
     return gp2.replace(mean=mean, alpha=alpha), cache
 
+
+
+# ---------------------------------------------------------------------------
+# objectives (differentiable scalars)
+# ---------------------------------------------------------------------------
+
+def _lml_terms(L: torch.Tensor, centered: torch.Tensor, alpha: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """-0.5 tr(C^T alpha) - 0.5 logdet K - 0.5 n log 2 pi; the padded
+    diagonal of L is 1, so its log terms vanish."""
+    a = torch.sum(centered * alpha)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    return -0.5 * a - 0.5 * logdet - 0.5 * n * math.log(2.0 * math.pi)
+
+
+def log_lik(gp: GP) -> torch.Tensor:
+    """Log marginal likelihood of the current factorization (limbo
+    GP::compute_log_lik, gp.hpp:267-281; limbo_tpu/models/gp.py:891-905).
+    logdet and 2 pi are counted once whatever dim_out (limbo's multi-output
+    generalization)."""
+    centered = (gp.y - gp.mean(gp.x)) * gp.mask[:, None]
+    return _lml_terms(gp.L, centered, gp.alpha, gp.n)
+
+
+def _objective_factor(kernel, mean, x, y, n: int, extra_jitter):
+    """(L, centered, alpha, mask) of the objective's training covariance."""
+    mask = (torch.arange(x.shape[0], device=x.device) < n).to(x.dtype)
+    mean = prepare_mean(mean, y, mask)
+    K = kernel.gram_train_masked(x, n, extra_jitter=extra_jitter)
+    L = cholesky(K)             # differentiable: the reference's pullback
+    centered = (y - mean(x)) * mask[:, None]
+    return L, centered, _cho_solve(L, centered), mask
+
+
+def log_marginal_likelihood(kernel, mean, x: torch.Tensor, y: torch.Tensor,
+                            n: int, extra_jitter=None) -> torch.Tensor:
+    """LML as a differentiable function of the (kernel, mean) parameters,
+    the hyperparameter-learning objective (limbo_tpu/models/gp.py:908-934;
+    autograd replaces limbo's hand-derived gradients, gp.hpp:285-337).
+
+    extra_jitter adds a parameter-independent ridge to the objective's
+    kernel diagonal only (the fitted GP is untouched): the hp-opt
+    strategies' f32 conditioning floor."""
+    L, centered, alpha, _ = _objective_factor(kernel, mean, x, y, int(n),
+                                              extra_jitter)
+    return _lml_terms(L, centered, alpha, int(n))
+
+
+def inv_kernel(gp: GP) -> torch.Tensor:
+    """K^{-1} via two triangular solves (limbo compute_inv_kernel,
+    gp.hpp:254)."""
+    eye = torch.eye(gp.capacity, dtype=gp.x.dtype, device=gp.x.device)
+    return _cho_solve(gp.L, eye)
+
+
+def _loo_terms(Kinv: torch.Tensor, alpha: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    inv_diag = 1.0 / torch.diagonal(Kinv)                            # (N,)
+    per = (-0.5 * (alpha ** 2) * inv_diag[:, None]
+           - 0.5 * torch.log(inv_diag)[:, None]
+           - 0.5 * math.log(2.0 * math.pi))
+    return torch.sum(per * mask[:, None])
+
+
+def log_loo_cv(gp: GP) -> torch.Tensor:
+    """Leave-one-out predictive log probability (limbo
+    GP::compute_log_loo_cv, gp.hpp:339-351; Rasmussen & Williams 5.4.2),
+    masked over the valid samples."""
+    return _loo_terms(inv_kernel(gp), gp.alpha, gp.mask)
+
+
+def log_loo_cv_fn(kernel, mean, x: torch.Tensor, y: torch.Tensor, n: int,
+                  extra_jitter=None) -> torch.Tensor:
+    """LOO-CV as a differentiable function of the hyperparameters (the
+    KernelLooOpt objective; limbo_tpu/models/gp.py:959-976)."""
+    L, _, alpha, mask = _objective_factor(kernel, mean, x, y, int(n),
+                                          extra_jitter)
+    eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+    return _loo_terms(_cho_solve(L, eye), alpha, mask)
+
+
+# ---------------------------------------------------------------------------
+# data access (limbo samples() / observations() / mean_observation())
+# ---------------------------------------------------------------------------
+
+def samples(gp: GP) -> torch.Tensor:
+    """The valid samples, (n, d)."""
+    return gp.x[:gp.n]
+
+
+def observations(gp: GP) -> torch.Tensor:
+    """The valid observations, (n, p)."""
+    return gp.y[:gp.n]
+
+
+def mean_observation(gp: GP) -> torch.Tensor:
+    """Column means of the valid observations (limbo
+    gp.mean_observation())."""
+    m = gp.mask
+    return torch.sum(gp.y * m[:, None], dim=0) / torch.clamp(torch.sum(m),
+                                                             min=1.0)

@@ -39,9 +39,13 @@ SIGNATURES = {
     },
     "trimv": {"trimv_launch": [_P, _P, _I, _I, _P, _P]},
     "tri_inv": {"tri_inv_panel_launch": [_P, _I, _P, _P]},
+    "panel_factor": {"panel_factor_launch": [_P, _I, _P, _P, _P]},
+    "mirror_mm": {"mirror_mm_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                        _P]},
 }
 
-LAUNCHES = {"gram": 0, "gram_train": 0, "trimv": 0, "tri_inv_panel": 0}
+LAUNCHES = {"gram": 0, "gram_train": 0, "trimv": 0, "tri_inv_panel": 0,
+            "panel_factor": 0, "mirror_mm": 0}
 
 _LIBS: dict = {}
 

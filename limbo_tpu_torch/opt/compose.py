@@ -1,9 +1,11 @@
-"""Optimizer combinators: batched random restarts (port of the
-RandomRestarts of limbo_tpu/opt/compose.py).
+"""Optimizer combinators: perturbed repeats and batched random restarts
+(port of ParallelRepeater and RandomRestarts of limbo_tpu/opt/compose.py).
 
-The restarts are one (repeats, d) tensor handed to the sub-optimizer, the
-counterpart of the reference's vmap.  The draws (sweep points and, without
-sweep seeding, the random starts) are split from the deterministic
+RandomRestarts hands its restarts to the sub-optimizer as one (repeats, d)
+tensor, the counterpart of the reference's vmap.  ParallelRepeater runs its
+repeats one after another: its user is hyperparameter learning, where each
+repeat holds O(N^2) buffers at large n.  Every draw (perturbations, sweep
+points, random starts) is split from a deterministic ``from_inits`` /
 ``from_sweep`` so that a test can feed the reference's own draws.
 """
 
@@ -15,6 +17,37 @@ from typing import Callable
 import torch
 
 from limbo_tpu_torch.opt.base import OptResult
+
+
+@dataclass
+class ParallelRepeater:
+    """``repeats`` runs of the sub-optimizer from init + U(-epsilon,
+    epsilon) perturbations; the best is kept (limbo opt::ParallelRepeater,
+    parallel_repeater.hpp:77).  limbo spreads the repeats over threads and
+    the reference over a vmap axis; here they run in sequence, so only one
+    repeat's buffers are alive at a time."""
+
+    sub: object
+    repeats: int = 10
+    epsilon: float = 1e-2
+
+    def __call__(self, fun: Callable, init: torch.Tensor,
+                 generator: torch.Generator, bounded: bool = False
+                 ) -> OptResult:
+        u = torch.rand((self.repeats, init.shape[0]), generator=generator,
+                       dtype=init.dtype, device=init.device)
+        pert = (2.0 * u - 1.0) * self.epsilon
+        return self.from_inits(fun, init[None, :] + pert, bounded,
+                               generator=generator)
+
+    def from_inits(self, fun: Callable, inits: torch.Tensor,
+                   bounded: bool = False, generator=None) -> OptResult:
+        """The deterministic rest of __call__, given the (repeats, d)
+        perturbed starts: the first best value wins, as jnp.argmax picks."""
+        res = [self.sub(fun, x0, generator, bounded) for x0 in inits]
+        value = torch.stack([r.value for r in res])
+        i = torch.argmax(value)
+        return OptResult(x=torch.stack([r.x for r in res])[i], value=value[i])
 
 
 @dataclass

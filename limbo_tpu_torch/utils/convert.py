@@ -6,7 +6,14 @@ and ``QueryCache`` (what its serializer writes): ``.kernel/.log_ell``,
 ``.mean/.value``, ``.x``, ``.y``, ``.n``, ``.L``, ``.alpha`` for a GP, and
 ``.Kinv``, ``.Linv``, ``.Kinv_q``, ``.P``, ``.base_n``, ``.ay``,
 ``.u_ones`` for a cache.  Integer scalars (``n``, ``base_n``) come back as
-Python ints; bf16 arrays (the query mirror) keep their dtype.
+Python ints; bf16 arrays (the query mirror) keep their dtype.  A GP after
+hyperparameter learning carries its learned parameters in the same
+buffers, and a GP factored by the blocked Cholesky its ``L`` like any other.
+
+``to_inits`` turns the reference's restart perturbations (drawn from its
+PRNG key, which torch cannot reproduce) into the starts that the port's
+deterministic ``ParallelRepeater.from_inits`` and ``_multi_start(...,
+pert=)`` take.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ def _path(key: str):
     return [p.lstrip(".") for p in key.split("/")]
 
 
-def _set_params(module, prefix: str, arrays: dict, device):
+def to_module(module, prefix: str, arrays: dict, device):
     """A copy of `module` with every buffer named under `prefix` in
     `arrays` replaced (nested modules such as FunctionARD's inner mean
     follow the path)."""
@@ -63,8 +70,8 @@ def to_gp(arrays: dict, kernel, mean, device="cuda") -> GP:
     overwritten from the arrays in copies)."""
     dev = resolve_device(device)
     fields = {k: to_tensor(arrays["." + k], dev) for k in _GP_ARRAYS}
-    return GP(kernel=_set_params(kernel, "kernel", arrays, dev),
-              mean=_set_params(mean, "mean", arrays, dev),
+    return GP(kernel=to_module(kernel, "kernel", arrays, dev),
+              mean=to_module(mean, "mean", arrays, dev),
               n=int(arrays[".n"]), **fields)
 
 
@@ -77,3 +84,14 @@ def to_cache(arrays: dict, device="cuda") -> QueryCache:
     if ".base_n" in arrays:
         fields["base_n"] = int(arrays[".base_n"])
     return QueryCache(**fields)
+
+
+def to_inits(init, pert, device="cuda") -> torch.Tensor:
+    """(R, P) starts init + pert from the reference's (P,) start and its
+    (R, P) uniform perturbations, both numpy arrays.  The reference draws
+    them as ``uniform(split(key, R + 1)[0], (R, P), -eps, eps)``
+    (ParallelRepeater, limbo_tpu/opt/compose.py:32-36) or from the first
+    of ``split(key, restarts + 1)`` (_multi_start, which then zeroes row
+    0, limbo_tpu/models/hp_opt.py:82-86)."""
+    dev = resolve_device(device)
+    return to_tensor(init, dev)[None, :] + to_tensor(pert, dev)

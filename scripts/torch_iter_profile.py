@@ -13,10 +13,14 @@ UCB, deferred appends), runs one warm-up iteration, then:
   the device time by kernel, the device-busy total and the idle share of
   the traced wall time, and writes the Chrome trace to ``--trace`` if given.
 
+With ``--hp`` it profiles, instead, ``--trace-iters`` f32 LML + gradient
+evaluations of chip_smoke.py's hp path (n = 16,384, capacity 16896, after
+the blocked-Cholesky fit), the unit of work of its hyperparameter learning.
+
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 scripts/torch_iter_profile.py [--iters 10] [--trace-iters 3]
-        [--trace out/trace.json]
+        [--trace out/trace.json] [--hp]
 """
 
 from __future__ import annotations
@@ -32,6 +36,51 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
+def lml_step(gp):
+    """One f32 LML + gradient in the kernel's log-parameters, as each
+    hp-opt step evaluates it."""
+    from limbo_tpu_torch.models import gp as gp_mod
+
+    def step():
+        p = gp.kernel.params.clone().requires_grad_(True)
+        v = gp_mod.log_marginal_likelihood(gp.kernel.with_params(p), gp.mean,
+                                           gp.x, gp.y, gp.n)
+        torch.autograd.grad(v, p)
+    return step
+
+
+def trace(step, reps: int, what: str, out) -> None:
+    """Run `step` `reps` times under torch.profiler; print the wall time,
+    the device-busy total, the idle share and the device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (the kernels and copies themselves): an
+    # operator's row would count its kernels' time a second time
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    print(f"traced {reps} {what}: wall {1e3 * wall:.3f} ms, device busy "
+          f"{1e3 * busy:.3f} ms, idle share {1.0 - busy / wall:.3f}")
+    print(f"device time by kernel (ms and launches per one of the {what}):")
+    for key, us, count in rows[:20]:
+        print(f"  {us / 1e3 / reps:9.4f}  {count / reps:7.1f}  {key[:90]}")
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -39,19 +88,34 @@ def main() -> int:
     ap.add_argument("--trace-iters", type=int, default=3)
     ap.add_argument("--trace", type=Path, default=None,
                     help="write the Chrome trace of the traced iterations")
+    ap.add_argument("--hp", action="store_true",
+                    help="profile LML + gradient evaluations of the hp path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_iter_profile: CUDA is not available", file=sys.stderr)
         return 1
     import limbo_tpu_torch  # noqa: F401  (precision policy: TF32 off)
-    from chip_smoke import MainPath, card_line
+    import chip_smoke as cs
     from limbo_tpu_torch.ops import _cuda
 
-    card = card_line()
+    card = cs.card_line()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     _cuda.build_all()
     dev = torch.device("cuda", 0)
-    path = MainPath(dev, torch.Generator(device=dev).manual_seed(args.seed))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.hp:
+        path = cs.MainPath(dev, gen, n=cs.HP_N, capacity=cs.HP_CAPACITY,
+                           ell=cs.HP_ELL, noise=cs.HP_NOISE,
+                           y_noise=cs.HP_Y_NOISE)
+        gp = path.fit()
+        step = lml_step(gp)
+        step()                                                # warm-up
+        torch.cuda.synchronize()
+        trace(step, args.trace_iters, "LML + gradient evaluations",
+              args.trace)
+        print(f"card: {card}")
+        return 0
+    path = cs.MainPath(dev, gen)
     gp = path.fit()
     cache = path.build(gp)
     gp, cache = path.iterate(gp, cache)                       # warm-up
@@ -73,35 +137,12 @@ def main() -> int:
           f"{1e3 * min(t_app):.3f}), host clock around synchronize",
           flush=True)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.trace_iters):
-            gp, cache = path.iterate(gp, cache)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only (the kernels and copies themselves): an
-    # operator's row would count its kernels' time a second time
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows) / 1e6
-    print(f"traced {args.trace_iters} iterations: wall {1e3 * wall:.3f} ms,"
-          f" device busy {1e3 * busy:.3f} ms, idle share "
-          f"{1.0 - busy / wall:.3f}")
-    print("device time by kernel (ms per iteration, launches per "
-          "iteration):")
-    for key, us, count in rows[:20]:
-        print(f"  {us / 1e3 / args.trace_iters:9.4f}  "
-              f"{count / args.trace_iters:7.1f}  {key[:90]}")
-    if args.trace is not None:
-        args.trace.parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(args.trace))
+    state = [gp, cache]
+
+    def step():
+        state[:] = path.iterate(*state)
+
+    trace(step, args.trace_iters, "iterations", args.trace)
     print(f"card: {card}")
     return 0
 

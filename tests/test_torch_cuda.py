@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from limbo_tpu_torch.models import gp as gp_mod
-from limbo_tpu_torch.ops import _cuda, chol, gram_pallas, trimv
+from limbo_tpu_torch.ops import _cuda, chol, gram_pallas, mirror, trimv
 
 pytestmark = pytest.mark.cuda
 
@@ -77,25 +77,111 @@ def test_tri_inv_panel_kernel(dev, nb):
 
 
 def test_mirror_mm_on_the_card_sums_in_f32(dev):
-    """The bf16 mirror product on the card (the mixed-dtype GEMM) returns
-    f32 sums of the exact products of its bf16 operands: within 2^-11 of
-    sum |terms| of their f64 product.  The card's GEMM truncates as it
-    accumulates (a bias toward 0 that grows with the depth), so the bound
-    is not the f32 rounding of one sum.  On positive operands a result
-    rounded through bf16 (up to 2^-9) misses it."""
+    """The bf16 mirror product on the card (the exact-sum kernel) returns
+    f32 sums of the exact products of its bf16 operands: within the f32
+    rounding of one sum, sqrt(K) 2^-24 sum |terms|, of their f64 product,
+    at ragged shapes.  On |ks| @ |Kq|, where nothing cancels, the mean
+    signed relative error is below 1e-6 (no bias: the tensor-core GEMM's
+    truncation gave -4.5e-5), and a product rounded through bf16 (up to
+    2^-9) misses the bound."""
     g = torch.Generator(device=dev).manual_seed(4)
-    q, K = 64, 2000
-    ks = torch.rand((q, K), generator=g, device=dev) - 0.3
-    A = torch.randn((K, K), generator=g, device=dev)
-    Kq = (A + A.T).to(torch.bfloat16)
-    for a, b in ((ks, Kq), (ks.abs(), Kq.abs())):
-        t = gp_mod._mirror_mm(a, b)
-        assert t.dtype == torch.float32
-        a64, b64 = a.to(torch.bfloat16).double(), b.double()
-        tol = 2.0 ** -11 * (a64.abs() @ b64.abs())
-        assert bool(((t.double() - a64 @ b64).abs() <= tol).all())
-    rounded = (a.to(torch.bfloat16) @ b).double()
-    assert bool(((rounded - a64 @ b64).abs() > tol).any())
+    for q, K, N in ((64, 2000, 2000), (37, 1000, 1003), (130, 129, 257)):
+        ks = torch.rand((q, K), generator=g, device=dev) - 0.3
+        A = torch.randn((K, N), generator=g, device=dev)
+        Kq = A.to(torch.bfloat16)
+        for a, b in ((ks, Kq), (ks.abs(), Kq.abs().contiguous())):
+            before = _cuda.LAUNCHES["mirror_mm"]
+            t = gp_mod._mirror_mm(a, b)
+            assert _cuda.LAUNCHES["mirror_mm"] == before + 1
+            assert t.dtype == torch.float32 and t.shape == (q, N)
+            a64, b64 = a.to(torch.bfloat16).double(), b.double()
+            tol = K ** 0.5 * 2.0 ** -24 * (a64.abs() @ b64.abs())
+            assert bool(((t.double() - a64 @ b64).abs() <= tol).all())
+            assert torch.equal(t, gp_mod._mirror_mm(a, b))   # fixed order
+        exact = a64 @ b64
+        rel = (t.double() - exact) / exact
+        assert abs(float(rel.mean())) < 1e-6
+        rounded = (a.to(torch.bfloat16) @ b).double()
+        assert bool(((rounded - exact).abs() > tol).any())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_panel_factor_kernel(dev, seed):
+    """The panel kernel against its plain version (cholesky_ex +
+    solve_triangular) on random SPD (128, 128) blocks read from a strided
+    panel: |err| <= 1e-4 max|plain| (~13 B 2^-24, two orders of a
+    condition-~5 factorization); an indefinite block gives NaN from its
+    failed pivot on, not clamped, and finite rows before it."""
+    g = torch.Generator(device=dev).manual_seed(5 + seed)
+    B = chol.PANEL_BLOCK
+    A = torch.randn((B, B), generator=g, device=dev)
+    panel = torch.zeros((3 * B, 2 * B), device=dev)
+    panel[B:2 * B, :B] = A @ A.T / B + torch.eye(B, device=dev)
+    D = panel[B:2 * B, :B]                          # row stride 2B
+    before = _cuda.LAUNCHES["panel_factor"]
+    L11, V = chol._panel_factor_pallas(D)
+    assert _cuda.LAUNCHES["panel_factor"] == before + 1
+    Lp, Vp = chol.panel_factor_plain(D.contiguous())
+    for k, p in ((L11, Lp), (V, Vp)):
+        torch.testing.assert_close(k, p, rtol=0,
+                                   atol=1e-4 * float(p.abs().max()))
+    assert bool((torch.triu(L11, 1) == 0).all())
+    bad = D.clone()
+    bad[40, 40] = -1.0
+    L11, V = chol._panel_factor_pallas(bad)
+    assert bool(torch.isfinite(L11[:40, :40]).all())
+    assert bool(torch.isnan(L11[40:, 40:]).any())
+    assert bool(torch.isnan(chol.panel_factor_plain(bad)[0]).any())
+
+
+def test_cholesky_blocked_ragged_against_cholesky_ex(dev):
+    """The blocked factorization on the card at N = 12500 (padded to 12544
+    with an identity block), entry by entry: |L L^T - K| <= N 2^-24
+    (|L| |L|^T), the componentwise backward error of an f32 Cholesky, with
+    the residual formed in f64; and |L - L_ex| <= 1e-4 max|L_ex| against
+    torch.linalg.cholesky_ex of the same K.  L rounded through bf16 must
+    miss both."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    N = 12500
+    X = torch.rand((N, 8), generator=g, device=dev) / 0.3
+    from limbo_tpu_torch.ops import gram_pallas as gp_ops
+    K = gp_ops.gram_train_pallas(X, torch.tensor(1.0, device=dev),
+                                 torch.ones((), device=dev),
+                                 torch.tensor(0.09, device=dev), N, "se")
+    before = _cuda.LAUNCHES["panel_factor"]
+    L = chol.cholesky(K)
+    assert _cuda.LAUNCHES["panel_factor"] == before + 12544 // 128
+    assert L.shape == (N, N)
+    Lx = torch.linalg.cholesky_ex(K)[0].double()
+    gam = N * 2.0 ** -24
+    ftol = 1e-4 * float(Lx.abs().max())
+    K = K.double()
+    for M, ok in ((L.double(), True),
+                  (L.to(torch.bfloat16).double(), False)):
+        A = M.abs()
+        back = bool(((M @ M.T - K).abs() <= gam * (A @ A.T)).all())
+        fwd = bool(((M - Lx).abs() <= ftol).all())
+        assert (back, fwd) == (ok, ok)
+
+
+def test_cholesky_pullback_on_the_card(dev):
+    """The pullback of the blocked factorization in f32 on the card
+    (N = 4224, so tri_inv runs the tri-inv panel kernel) against the f64
+    pullback of the same A: |err| <= cond(A)^2 N 2^-24 max|ref|."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    N = 4224
+    M = torch.randn((N, N), generator=g, device=dev, dtype=torch.float64)
+    A = M @ M.T / N + torch.eye(N, device=dev, dtype=torch.float64)
+    Lbar = torch.randn((N, N), generator=g, device=dev, dtype=torch.float64)
+    A32 = A.float().requires_grad_(True)
+    before = _cuda.LAUNCHES["tri_inv_panel"]
+    chol.cholesky(A32, min_blocked=0).backward(Lbar.float())
+    assert _cuda.LAUNCHES["tri_inv_panel"] == before + 1
+    A64 = A.clone().requires_grad_(True)
+    chol.cholesky(A64).backward(Lbar)
+    cond = float(torch.linalg.cond(A))
+    tol = cond ** 2 * N * 2.0 ** -24 * float(A64.grad.abs().max())
+    assert float((A32.grad.double() - A64.grad).abs().max()) <= tol
 
 
 def test_use_pallas_rule(dev):
@@ -118,3 +204,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                             torch.rand((8,), device=dev))
     with pytest.raises(ValueError, match="block"):
         chol._tri_inv_panel(torch.eye(96, device=dev), 48)
+    with pytest.raises(ValueError, match="block"):
+        chol._panel_factor_pallas(torch.eye(64, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        chol._panel_factor_pallas(torch.eye(128, device=dev).double())
+    with pytest.raises(ValueError, match="bfloat16"):
+        mirror.mirror_mm(X, torch.rand((3, 5), device=dev))

@@ -1,4 +1,6 @@
-"""The port's cached BO iteration against the JAX package's, step by step.
+"""The port's cached BO iteration against the JAX package's, step by step
+(slice 1), and hyperparameter learning followed by cached iterations
+(slice 2, the last test).
 
 The bench.py iteration at a CPU size: SquaredExpARD + DataMean fit at
 capacity 256 (d = 3), QueryCache.build(with_Linv, bf16 mirror, defer_m=4),
@@ -18,10 +20,12 @@ import limbo_tpu.acqui as jacq
 import limbo_tpu.kernels as jk
 import limbo_tpu.means as jm
 from limbo_tpu.models import gp as jgp
+from limbo_tpu.models import hp_opt as jhp
 from limbo_tpu.opt.compose import RandomRestarts as JRandomRestarts
 from limbo_tpu.opt.gradient import Rprop as JRprop
 from limbo_tpu_torch import acqui, kernels, means
 from limbo_tpu_torch.models import gp as tgp
+from limbo_tpu_torch.models import hp_opt
 from limbo_tpu_torch.opt import RandomRestarts, Rprop
 
 torch.set_num_threads(1)
@@ -114,3 +118,65 @@ def test_cached_bo_iterations_match_reference():
     for a, b in zip(tgp.query_cached(gt, ct, Xq),
                     _jquery_cached(gj, cj, jnp.asarray(Xq.numpy()))):
         _close(a, b)
+
+
+def test_hp_learning_then_cached_iterations_match_reference():
+    """Slice 2 at a CPU size, f64: fit at capacity 256, KernelLFOpt with
+    Rprop(5) (its refit is the recompute), QueryCache.build(with_Linv, bf16
+    mirror, defer_m=2), then 3 cached BO iterations with deferred appends
+    (one flush).  The learned parameters, the refitted factor and every
+    iteration's point and state match the reference (1e-9 of max|ref|)."""
+    rng = np.random.default_rng(12)
+    X = rng.uniform(size=(N0, D))
+    Y = np.sin(3.0 * X.sum(axis=1, keepdims=True)) \
+        + 0.3 * rng.standard_normal((N0, 1))
+    kj = jk.SquaredExpARD.create(dim=D, noise=0.09, dtype=jnp.float64)
+    kt = kernels.SquaredExpARD.create(dim=D, noise=0.09, device="cpu",
+                                      dtype=torch.float64)
+    gj = _jfit(kj, jm.DataMean.create(dtype=jnp.float64), jnp.asarray(X),
+               jnp.asarray(Y), capacity=CAP)
+    gt = tgp.fit(kt, means.DataMean.create(device="cpu", dtype=torch.float64),
+                 X, Y, capacity=CAP, device="cpu")
+    sj = jhp.KernelLFOpt(optimizer=JRprop(iterations=STEPS))
+    gj = jax.jit(lambda g: sj(g, jax.random.PRNGKey(0)))(gj)
+    gt = hp_opt.KernelLFOpt(optimizer=Rprop(iterations=STEPS))(
+        gt, torch.Generator().manual_seed(0))
+    _close(gt.kernel.params, gj.kernel.params)
+    _close(gt.L, gj.L)
+    _close(gt.alpha, gj.alpha)
+
+    cj = _jbuild(gj, with_Linv=True, qdtype=jnp.bfloat16, defer_m=2)
+    ct = tgp.QueryCache.build(gt, with_Linv=True, qdtype=torch.bfloat16,
+                              defer_m=2)
+    opt_j = JRandomRestarts(sub=JRprop(iterations=STEPS), repeats=RESTARTS,
+                            sweep_samples=SWEEP)
+    opt_t = RandomRestarts(sub=Rprop(iterations=STEPS), repeats=RESTARTS,
+                           sweep_samples=SWEEP)
+
+    @jax.jit
+    def jax_iter(gp, cache, key):
+        view = jgp.CachedGPView(gp, cache)
+        res = opt_j(lambda x: jacq.UCB(alpha=0.5)(view, x),
+                    jnp.full((D,), 0.5), key, True)
+        y = jnp.sin(3.0 * jnp.sum(res.x))[None]
+        return (res.x,) + jgp.add_sample_cached(gp, cache, res.x, y,
+                                                fast_update="deferred")
+
+    start = torch.full((D,), 0.5, dtype=torch.float64)
+    for it in range(3):
+        key = jax.random.PRNGKey(10 + it)
+        x_j, gj, cj = jax_iter(gj, cj, key)
+        sweep = jax.random.uniform(jax.random.split(key, 3)[2], (SWEEP, D),
+                                   dtype=jnp.float64)
+        view = tgp.CachedGPView(gt, ct)
+        res = opt_t.from_sweep(lambda Z: acqui.UCB(alpha=0.5)(view, Z),
+                               start, torch.from_numpy(np.array(sweep)),
+                               True)
+        _close(res.x, x_j)
+        y = torch.sin(3.0 * torch.sum(res.x))[None]
+        gt, ct = tgp.add_sample_cached(gt, ct, res.x, y,
+                                       fast_update="deferred")
+        for a, b in ((gt.L, gj.L), (gt.alpha, gj.alpha), (ct.Kinv, cj.Kinv),
+                     (ct.Linv, cj.Linv), (ct.P, cj.P)):
+            _close(a, b)
+    assert ct.base_n == int(cj.base_n) == N0 + 2      # the flush happened
