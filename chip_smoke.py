@@ -13,8 +13,9 @@ Run from the repository root on a machine with one NVIDIA H100:
    the path, prints the largest error beside its stated tolerance, and
    times the kernel, the plain version and, where one PyTorch call computes
    the same function, that call.  At N = 16896 it adds the panel-factor
-   kernel (a real SPD block, and an indefinite block that must give NaN)
-   and the whole blocked factorization beside ``cholesky_ex``.
+   kernel (a real SPD block, and indefinite blocks that must give NaN from
+   the failed pivot on) and the whole blocked factorization beside
+   ``cholesky_ex``.
 4. Main path: the n = 10,000, d = 8 cached BO loop of bench.py through the
    port's entry points (fit, QueryCache.build with Linv, a bf16 mirror and
    defer_m = 32, then per iteration RandomRestarts(Rprop(20), 64 restarts,
@@ -68,6 +69,7 @@ RESTARTS, STEPS, SWEEP, DEFER_M = 64, 20, 1024, 32
 HP_N, HP_CAPACITY, HP_ELL, HP_NOISE, HP_Y_NOISE = 16_384, 16_896, 0.3, 0.09, 0.3
 HP_STEPS, HP_REPEATS, HP_ITERS = 5, 2, 34   # 34 > DEFER_M: one flush
 F32_U = 2.0 ** -24          # unit roundoff of f32
+PANEL_PIVOTS = (0, 31, 32, 40, 127)   # failed pivots the panel check tries
 
 
 def log(msg: str) -> None:
@@ -292,15 +294,18 @@ def panel_factor_rows(dev, K):
                           "1e-4 max|plain|"),
               check_close("panel L11^-T", Vk, Vp,
                           1e-4 * float(Vp.abs().max()), "1e-4 max|plain|"))
-    bad = D.clone()
-    bad[40, 40] = -1.0
-    Lb, _ = chol._panel_factor_pallas(bad)
-    if not (bool(torch.isnan(Lb[40:, 40:]).any())
-            and bool(torch.isfinite(Lb[:40, :40]).all())):
-        raise AssertionError("panel_factor: an indefinite block did not give "
-                             "NaN from its failed pivot on")
-    log("  indefinite block (pivot 40 < 0): NaN from pivot 40 on, finite "
-        "before it: ok")
+    # the kernel factors in 32-wide sub-blocks: pivots at their boundaries
+    # and inside one
+    for p in PANEL_PIVOTS:
+        bad = D.clone()
+        bad[p, p] = -1.0
+        Lb, _ = chol._panel_factor_pallas(bad)
+        if not (bool(torch.isnan(torch.diagonal(Lb)[p:]).all())
+                and bool(torch.isfinite(Lb[:p, :p]).all())):
+            raise AssertionError(f"panel_factor: an indefinite block did not "
+                                 f"give NaN from its failed pivot {p} on")
+    log(f"  indefinite blocks (pivot {list(PANEL_PIVOTS)} < 0): NaN from the "
+        f"pivot on, finite before it: ok")
     ms = cuda_ms(lambda: chol._panel_factor_pallas(D))
     plain = cuda_ms(lambda: chol.panel_factor_plain(D))
     eye = torch.eye(B, device=dev)
@@ -328,48 +333,58 @@ def mirror_rows(dev, gen, Xs, K, N):
     q = 1024 against N: a real cross-covariance of the path's kernel times
     a real (N, N) operand of its scale (the covariance K rounded to bf16),
     held to the f64 product of the same bf16 operands within the f32
-    rounding of one sum, sqrt(N) 2^-24 sum|terms|.  The bound is the
-    function's: bf16 operands at the tensor-core rate, since f32 sums of
-    their exact products can also be taken from tensor-core partial sums.
-    This design's own ceiling, the same operations at the f32 rate of the
-    CUDA cores it runs on, is printed and kept beside it."""
+    rounding of one sum, sqrt(N) 2^-24 sum|terms|, and on |ks| @ |Kq|,
+    where nothing cancels, to a mean signed relative error below 1e-6.  The
+    bound is the function's: bf16 operands at the tensor-core rate."""
     from limbo_tpu_torch.ops import gram_pallas as gp_ops, mirror
 
-    log(f"kernel mirror_mm (csrc/mirror_mm.cu), the port's own, N = {N}:")
+    log(f"kernel mirror_mm (csrc/mirror_mm.cu), the port's own, N = {N}, "
+        f"promotion interval {mirror.PROMOTION}:")
     Kq = K.to(torch.bfloat16)
+    Kabs = Kq.abs()
     one = torch.ones((), device=dev)
-    rows, err = {}, 0.0
+    rows, err, bias = {}, 0.0, {}
     for q in (64, SWEEP):
         Xq = torch.rand((q, DIM), generator=gen, device=dev) * Xs.max()
         ks = gp_ops.gram_pallas(Xq, Xs, one, one, "se")
-        t = mirror.mirror_mm(ks, Kq)
-        k64, K64 = ks.to(torch.bfloat16).double(), Kq.double()
-        scale = k64.abs() @ K64.abs()
-        err = max(err, check_close(f"mirror_mm ({q}x{N}) vs f64", t,
-                                   k64 @ K64, N ** 0.5 * F32_U * scale,
-                                   "sqrt(N) 2^-24 (|ks| @ |Kq|)"))
-        del K64
+        k64 = ks.to(torch.bfloat16).double()
+        for name, b in (("ks @ Kq", Kq), ("|ks| @ |Kq|", Kabs)):
+            t = mirror.mirror_mm(ks.abs() if b is Kabs else ks, b)
+            B64 = b.double()
+            exact = (k64.abs() if b is Kabs else k64) @ B64
+            scale = k64.abs() @ B64.abs()
+            err = max(err, check_close(f"mirror_mm {name} ({q}x{N}) vs f64",
+                                       t, exact, N ** 0.5 * F32_U * scale,
+                                       "sqrt(N) 2^-24 (|ks| @ |Kq|)"))
+            del B64
+        live = scale > 0
+        bias[q] = float(((t.double() - scale)[live] / scale[live]).mean())
+        log(f"  |ks| @ |Kq| ({q}x{N}): signed relative error mean "
+            f"{bias[q]:.3e} (limit 1e-6)")
+        if not abs(bias[q]) < 1e-6:
+            raise AssertionError("mirror_mm: biased sums")
+        del t, exact, scale
         ms = cuda_ms(lambda: mirror.mirror_mm(ks, Kq))
         plain = cuda_ms(lambda: mirror.mirror_mm_plain(ks, Kq))
         lib = cuda_ms(lambda: torch.mm(ks.to(torch.bfloat16), Kq,
                                        out_dtype=torch.float32))
-        nbytes, ops = N * N * 2 + 2 * q * N * 4, 2.0 * q * N * N
-        b = bound_ms(nbytes, ops, PEAK_BF16_OPS)
-        simt = bound_ms(nbytes, ops)[0]
-        log(f"  mirror_mm ({q}x{N}x{N}): kernel {ms:.4f} ms, plain (f32 "
+        b = bound_ms(N * N * 2 + 2 * q * N * 4, 2.0 * q * N * N,
+                     PEAK_BF16_OPS)
+        log(f"  mirror_mm ({q}x{N}x{N}): kernel {ms:.4f} ms (tile "
+            f"{mirror._row_tile(q)} x {mirror._TILE_N}, promotion "
+            f"{mirror.PROMOTION}), plain (f32 "
             f"upcast GEMM) {plain:.4f} ms, torch.mm(bf16, out_dtype=f32) "
-            f"{lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; this design's "
-            f"CUDA-core ceiling {simt:.4f} ms)")
-        rows[q] = (ms, plain, b, lib, simt)
-    ms, plain, b, lib, simt = rows[64]
+            f"{lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        rows[q] = (ms, plain, b, lib)
+    ms, plain, b, lib = rows[64]
     e = _entry("mirror_mm.cu", "none (the port's own; the reference's "
                "product is an XLA dot, limbo_tpu/models/gp.py:496)", err,
                ms, plain, b, lib)
-    e["cuda_core_bound_ms"] = simt
-    ms, plain, b, lib, simt = rows[SWEEP]
+    e["promotion"] = mirror.PROMOTION
+    e["rel_bias"] = bias[64]
+    ms, plain, b, lib = rows[SWEEP]
     e["at_q1024"] = dict(ms=ms, plain_ms=plain, bound_ms=b[0],
-                         bound_by=b[1], library_ms=lib,
-                         cuda_core_bound_ms=simt)
+                         bound_by=b[1], library_ms=lib, rel_bias=bias[SWEEP])
     return e
 
 
@@ -901,10 +916,10 @@ def main() -> int:
                    at_N=HP_CAPACITY)
         if k in small:
             row[f"at_N{CAPACITY}"] = {x: small[k][x] for x in keys
-                                      + ("cuda_core_bound_ms",)
+                                      + ("rel_bias", "at_q1024")
                                       if x in small[k]}
         row.update({x: e[x] for x in e
-                    if x.startswith(("at_", "fact", "cuda_core"))})
+                    if x.startswith(("at_", "fact", "promotion", "rel_"))})
         kernels.append(row)
     print(json.dumps({"main_path": {
         "iters_per_s": res["iters_per_s"], "fit_s": res["fit_s"],

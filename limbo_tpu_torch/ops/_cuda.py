@@ -40,8 +40,8 @@ SIGNATURES = {
     "trimv": {"trimv_launch": [_P, _P, _I, _I, _P, _P]},
     "tri_inv": {"tri_inv_panel_launch": [_P, _I, _P, _P]},
     "panel_factor": {"panel_factor_launch": [_P, _I, _P, _P, _P]},
-    "mirror_mm": {"mirror_mm_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
-                                        _P]},
+    "mirror_mm": {"mirror_mm_launch": [_P, _P, _I, _I, _I, _I, _I, _I,
+                                        _P, _P, _P, _P]},
 }
 
 LAUNCHES = {"gram": 0, "gram_train": 0, "trimv": 0, "tri_inv_panel": 0,
@@ -66,29 +66,29 @@ def _nvcc() -> str:
                        "machine with the card, from limbo_tpu_torch/csrc")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{h}.so"
+def _lib_path(source: Path, flags=()) -> Path:
+    h = hashlib.sha256(source.read_bytes()
+                       + " ".join([*NVCC_FLAGS, *flags]).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str):
-    """Start one nvcc process building `name`'s library into a temporary
-    file; returns (process, temporary path, final path)."""
-    out = _lib_path(name)
+def _start_build(source: Path, flags=()):
+    """Start one nvcc process building `source` (with extra nvcc `flags`)
+    into a temporary file; returns (process, temporary path, final path)."""
+    out = _lib_path(source, flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish_build(name: str, proc, tmp: Path, out: Path) -> None:
+def _finish_build(source: Path, proc, tmp: Path, out: Path) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{log}")
     os.replace(tmp, out)
 
 
@@ -96,8 +96,9 @@ def build_all() -> float:
     """Compile every library that is not built yet, all nvcc processes
     started together; returns the seconds it took."""
     t0 = time.perf_counter()
-    todo = [n for n in SIGNATURES if not _lib_path(n).exists()]
-    jobs = [(n, *_start_build(n)) for n in todo]
+    todo = [CSRC / f"{n}.cu" for n in SIGNATURES]
+    jobs = [(src, *_start_build(src)) for src in todo
+            if not _lib_path(src).exists()]
     try:
         for job in jobs:
             _finish_build(*job)
@@ -114,9 +115,24 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    path = _lib_path(name)
-    if not path.exists():
-        _finish_build(name, *_start_build(name))
+    return load(name, build_variant(CSRC / f"{name}.cu"))
+
+
+def build_variant(source: Path, *flags: str) -> Path:
+    """Build `source` with extra nvcc `flags` into BUILD_DIR, keyed on both,
+    unless it is built already; returns the library's path.  The port's own
+    libraries are csrc/<name>.cu with no flags; measurement scripts build
+    variants (a -D switch, a copy with clock stamps)."""
+    source = Path(source)
+    out = _lib_path(source, flags)
+    if not out.exists():
+        _finish_build(source, *_start_build(source, flags))
+    return out
+
+
+def load(name: str, path: Path) -> ctypes.CDLL:
+    """Load the library at `path` as csrc/<name>.cu's, its launchers typed
+    from SIGNATURES[name]; the wrappers launch from it from then on."""
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)

@@ -76,7 +76,15 @@ def test_tri_inv_panel_kernel(dev, nb):
                                atol=1e-5 * float(p.abs().max()))
 
 
-def test_mirror_mm_on_the_card_sums_in_f32(dev):
+@pytest.mark.parametrize("q,K,N", [
+    (64, 2000, 2000), (37, 1000, 1003), (130, 129, 257),
+    # across the tile and slice edges: a single row, one row past the
+    # 64-row tile, depths that are not multiples of 16, rows of Kq that are
+    # not 16-byte multiples, the main path's N = 10240 at the query's q = 64
+    (1, 1000, 1000), (65, 1000, 1003), (65, 129, 1001), (64, 10240, 10240),
+    # the hp path's depth
+    (64, 16896, 1024)])
+def test_mirror_mm_on_the_card_sums_in_f32(dev, q, K, N):
     """The bf16 mirror product on the card (the exact-sum kernel) returns
     f32 sums of the exact products of its bf16 operands: within the f32
     rounding of one sum, sqrt(K) 2^-24 sum |terms|, of their f64 product,
@@ -85,24 +93,42 @@ def test_mirror_mm_on_the_card_sums_in_f32(dev):
     truncation gave -4.5e-5), and a product rounded through bf16 (up to
     2^-9) misses the bound."""
     g = torch.Generator(device=dev).manual_seed(4)
-    for q, K, N in ((64, 2000, 2000), (37, 1000, 1003), (130, 129, 257)):
-        ks = torch.rand((q, K), generator=g, device=dev) - 0.3
-        A = torch.randn((K, N), generator=g, device=dev)
-        Kq = A.to(torch.bfloat16)
-        for a, b in ((ks, Kq), (ks.abs(), Kq.abs().contiguous())):
-            before = _cuda.LAUNCHES["mirror_mm"]
-            t = gp_mod._mirror_mm(a, b)
-            assert _cuda.LAUNCHES["mirror_mm"] == before + 1
-            assert t.dtype == torch.float32 and t.shape == (q, N)
-            a64, b64 = a.to(torch.bfloat16).double(), b.double()
-            tol = K ** 0.5 * 2.0 ** -24 * (a64.abs() @ b64.abs())
-            assert bool(((t.double() - a64 @ b64).abs() <= tol).all())
-            assert torch.equal(t, gp_mod._mirror_mm(a, b))   # fixed order
-        exact = a64 @ b64
-        rel = (t.double() - exact) / exact
-        assert abs(float(rel.mean())) < 1e-6
-        rounded = (a.to(torch.bfloat16) @ b).double()
-        assert bool(((rounded - exact).abs() > tol).any())
+    ks = torch.rand((q, K), generator=g, device=dev) - 0.3
+    A = torch.randn((K, N), generator=g, device=dev)
+    Kq = A.to(torch.bfloat16)
+    for a, b in ((ks, Kq), (ks.abs(), Kq.abs().contiguous())):
+        before = _cuda.LAUNCHES["mirror_mm"]
+        t = gp_mod._mirror_mm(a, b)
+        assert _cuda.LAUNCHES["mirror_mm"] == before + 1
+        assert t.dtype == torch.float32 and t.shape == (q, N)
+        a64, b64 = a.to(torch.bfloat16).double(), b.double()
+        tol = K ** 0.5 * 2.0 ** -24 * (a64.abs() @ b64.abs())
+        assert bool(((t.double() - a64 @ b64).abs() <= tol).all())
+        assert torch.equal(t, gp_mod._mirror_mm(a, b))   # fixed order
+    exact = a64 @ b64
+    rel = (t.double() - exact) / exact
+    assert abs(float(rel.mean())) < 1e-6
+    rounded = (a.to(torch.bfloat16) @ b).double()
+    assert bool(((rounded - exact).abs() > tol).any())
+
+
+@pytest.mark.parametrize("pivot", [0, 31, 32, 40, 127])
+def test_panel_factor_nan_from_failed_pivot(dev, pivot):
+    """An indefinite block, read from a strided panel, whose pivot fails at
+    a sub-block boundary (the kernel factors in 32-wide sub-blocks) or
+    inside one: NaN from that pivot on, not clamped, and finite entries
+    before it; the plain version gives NaN too."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    B = chol.PANEL_BLOCK
+    A = torch.randn((B, B), generator=g, device=dev)
+    panel = torch.zeros((3 * B, 2 * B), device=dev)
+    panel[B:2 * B, :B] = A @ A.T / B + torch.eye(B, device=dev)
+    D = panel[B:2 * B, :B]                          # row stride 2B
+    D[pivot, pivot] = -1.0
+    L11, _ = chol._panel_factor_pallas(D)
+    assert bool(torch.isfinite(L11[:pivot, :pivot]).all())
+    assert bool(torch.isnan(torch.diagonal(L11)[pivot:]).all())
+    assert bool(torch.isnan(chol.panel_factor_plain(D.contiguous())[0]).any())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -110,8 +136,7 @@ def test_panel_factor_kernel(dev, seed):
     """The panel kernel against its plain version (cholesky_ex +
     solve_triangular) on random SPD (128, 128) blocks read from a strided
     panel: |err| <= 1e-4 max|plain| (~13 B 2^-24, two orders of a
-    condition-~5 factorization); an indefinite block gives NaN from its
-    failed pivot on, not clamped, and finite rows before it."""
+    condition-~5 factorization).  Indefinite blocks: the test above."""
     g = torch.Generator(device=dev).manual_seed(5 + seed)
     B = chol.PANEL_BLOCK
     A = torch.randn((B, B), generator=g, device=dev)
@@ -126,12 +151,6 @@ def test_panel_factor_kernel(dev, seed):
         torch.testing.assert_close(k, p, rtol=0,
                                    atol=1e-4 * float(p.abs().max()))
     assert bool((torch.triu(L11, 1) == 0).all())
-    bad = D.clone()
-    bad[40, 40] = -1.0
-    L11, V = chol._panel_factor_pallas(bad)
-    assert bool(torch.isfinite(L11[:40, :40]).all())
-    assert bool(torch.isnan(L11[40:, 40:]).any())
-    assert bool(torch.isnan(chol.panel_factor_plain(bad)[0]).any())
 
 
 def test_cholesky_blocked_ragged_against_cholesky_ex(dev):
