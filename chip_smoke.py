@@ -12,7 +12,12 @@ Run from the repository root on a machine with one NVIDIA H100:
    kernel against its plain PyTorch version on the card at the shapes of
    the path, prints the largest error beside its stated tolerance, and
    times the kernel, the plain version and, where one PyTorch call computes
-   the same function, that call.  At N = 16896 it adds the panel-factor
+   the same function, that call.  The covariance kernels (gram at q = 64
+   and 1024, gram_train) also print each form's time, the achieved write
+   rate and share of the bytes bound, and a launch floor (a one-element
+   ``fill_`` replayed the same way); gram_train's padding rows must equal
+   the identity's and the matrix its transpose, exactly.  At N = 16896 it
+   adds the panel-factor
    kernel (a real SPD block, and indefinite blocks that must give NaN from
    the failed pivot on) and the whole blocked factorization beside
    ``cholesky_ex``.
@@ -140,6 +145,23 @@ def event_ms(fn, reps: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
+def write_rate(what: str, form_ms: dict, plain: float, bnd, nbytes: float,
+               floor: float) -> dict:
+    """Print a covariance kernel's times (each form), its achieved write
+    rate and share of the bytes bound, and the launch floor + 2 x bound
+    beside it; returns them."""
+    ms = form_ms["se"]
+    gbps = nbytes / (ms * 1e-3) / 1e9
+    share = bnd[0] / ms
+    log(f"  {what}: kernel se {ms:.4f}, matern32 {form_ms['matern32']:.4f}, "
+        f"matern52 {form_ms['matern52']:.4f} ms; {gbps:.1f} GB/s, "
+        f"{share:.3f} of the bound; plain {plain:.4f} ms; bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}); launch floor + 2 x bound "
+        f"{floor + 2 * bnd[0]:.4f} ms")
+    return dict(ms=ms, plain_ms=plain, bound=bnd, form_ms=form_ms,
+                gb_per_s=gbps, bytes_share=share)
+
+
 def _entry(route_src: str, replaces: str, err, ms, plain, bnd, lib):
     return dict(route="cuda", source=f"limbo_tpu_torch/csrc/{route_src}",
                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -159,53 +181,72 @@ def kernel_phase(dev, gen, N: int, n: int, ell: float, noise: float):
     inv_l = torch.tensor(0.8, device=dev)
     X2 = torch.rand((N, d), generator=gen, device=dev)
     X2[n:] = 0.0
+    cell = torch.empty((1,), device=dev)
+    floor = cuda_ms(lambda: cell.fill_(1.0))
+    log(f"launch floor (a one-element fill_, CUDA-graph replay): "
+        f"{floor:.4f} ms")
     # gram and gram_train tiles: the reference's interpret-mode test
     # tolerance (tests/test_pallas_gram.py), |err| <= 2e-6 + 2e-5 |plain|
     log("kernel gram (csrc/gram.cu), all three forms:")
     err, rows = 0.0, {}
     for q in (64, SWEEP):
         X1 = torch.rand((q, d), generator=gen, device=dev)
+        form_ms = {}
         for form in gp_ops.FORMS:
             k = gp_ops.gram_pallas(X1, X2, sf2, inv_l, form)
             p = gp_ops.gram_plain(X1, X2, sf2, inv_l, form)
             err = max(err, check_close(f"gram {form} ({q}x{N})", k, p,
                                        2e-6 + 2e-5 * p.abs(),
                                        "2e-6 + 2e-5|plain|"))
-        ms = cuda_ms(lambda: gp_ops.gram_pallas(X1, X2, sf2, inv_l, "se"))
+            form_ms[form] = cuda_ms(
+                lambda: gp_ops.gram_pallas(X1, X2, sf2, inv_l, form))
+        ms = form_ms["se"]
         plain = cuda_ms(lambda: gp_ops.gram_plain(X1, X2, sf2, inv_l, "se"))
         # ops: the a.b products and norms, and ~10 per output epilogue
-        b = bound_ms((q * d + N * d + q * N) * 4,
-                     2 * d * q * N + 2 * d * (q + N) + 10 * q * N)
-        log(f"  gram se ({q}x{N}x{d}): kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-        rows[q] = (ms, plain, b)
-    ms, plain, b = rows[SWEEP]
+        nbytes = (q * d + N * d + q * N) * 4
+        b = bound_ms(nbytes, 2 * d * q * N + 2 * d * (q + N) + 10 * q * N)
+        rows[q] = write_rate(f"gram ({q}x{N}x{d})", form_ms, plain, b,
+                             nbytes, floor)
     entries["gram"] = _entry("gram.cu", "limbo_tpu/ops/gram_pallas.py:79",
-                             err, ms, plain, b, None)
-    entries["gram"]["at_q64"] = dict(ms=rows[64][0], plain_ms=rows[64][1],
-                                     bound_ms=rows[64][2][0])
+                             err, rows[SWEEP]["ms"], rows[SWEEP]["plain_ms"],
+                             rows[SWEEP]["bound"], None)
+    entries["gram"].update(launch_floor_ms=floor, **{
+        k: rows[SWEEP][k] for k in ("form_ms", "gb_per_s", "bytes_share")})
+    entries["gram"]["at_q64"] = {k: v for k, v in rows[64].items()
+                                 if k != "bound"}
+    entries["gram"]["at_q64"]["bound_ms"] = rows[64]["bound"][0]
 
-    log("kernel gram_train (csrc/gram.cu):")
+    log("kernel gram_train (csrc/gram.cu), all three forms:")
     dadd = torch.tensor(noise + 32 * 2 ** -23, device=dev)
-    err = 0.0
+    err, form_ms = 0.0, {}
+    pad = torch.zeros((N - n, N), device=dev)
+    pad[:, n:] = torch.eye(N - n, device=dev)
     for form in gp_ops.FORMS:
         k = gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, n, form)
         p = gp_ops.gram_train_plain(X2, sf2, inv_l, dadd, n, form)
         err = max(err, check_close(f"gram_train {form} ({N}, n={n})", k, p,
                                    2e-6 + 2e-5 * p.abs(),
                                    "2e-6 + 2e-5|plain|"))
-        if not torch.equal(k[n:, n:], torch.eye(N - n, device=dev)):
+        if not torch.equal(k[n:], pad):
             raise AssertionError("gram_train padding is not the identity")
+        if not torch.equal(k, k.T):
+            raise AssertionError("gram_train is not exactly symmetric")
         del k, p
-    ms = cuda_ms(lambda: gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, n))
+        form_ms[form] = cuda_ms(
+            lambda: gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, n, form))
+    log("  padding rows exactly the identity's, k == k.T exactly: ok")
+    del pad
     plain = cuda_ms(lambda: gp_ops.gram_train_plain(X2, sf2, inv_l, dadd, n),
                     reps=5)
-    b = bound_ms((N * d + N * N) * 4, 2 * d * N * N + 10 * N * N)
-    log(f"  gram_train se ({N}, n={n}): kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    nbytes = (N * d + N * N) * 4
+    b = bound_ms(nbytes, 2 * d * N * N + 10 * N * N)
+    row = write_rate(f"gram_train ({N}, n={n})", form_ms, plain, b, nbytes,
+                     floor)
     entries["gram_train"] = _entry("gram.cu",
                                    "limbo_tpu/ops/gram_pallas.py:153", err,
-                                   ms, plain, b, None)
+                                   row["ms"], plain, b, None)
+    entries["gram_train"].update(launch_floor_ms=floor, **{
+        k: row[k] for k in ("form_ms", "gb_per_s", "bytes_share")})
 
     # a real covariance of the path's kernel (sigma^2 = 1), its factor and
     # the factor's inverse
@@ -903,6 +944,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hp = hp_path(dev, gen, HP_ITERS)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
+    extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
+             "bytes_share", "launch_floor_ms")
     kernels = []
     for k, e in large.items():
         row = dict(name=k, route=e["route"], source=e["source"],
@@ -915,11 +958,10 @@ def main() -> int:
                                      "hp16k": hp["launches"][k]},
                    at_N=HP_CAPACITY)
         if k in small:
-            row[f"at_N{CAPACITY}"] = {x: small[k][x] for x in keys
-                                      + ("rel_bias", "at_q1024")
+            row[f"at_N{CAPACITY}"] = {x: small[k][x] for x in keys + extra
                                       if x in small[k]}
-        row.update({x: e[x] for x in e
-                    if x.startswith(("at_", "fact", "promotion", "rel_"))})
+        row.update({x: e[x] for x in e if x in extra
+                    or x.startswith(("at_", "fact", "promotion"))})
         kernels.append(row)
     print(json.dumps({"main_path": {
         "iters_per_s": res["iters_per_s"], "fit_s": res["fit_s"],

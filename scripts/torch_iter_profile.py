@@ -74,8 +74,14 @@ def trace(step, reps: int, what: str, out) -> None:
     print(f"traced {reps} {what}: wall {1e3 * wall:.3f} ms, device busy "
           f"{1e3 * busy:.3f} ms, idle share {1.0 - busy / wall:.3f}")
     print(f"device time by kernel (ms and launches per one of the {what}):")
-    for key, us, count in rows[:20]:
-        print(f"  {us / 1e3 / reps:9.4f}  {count / reps:7.1f}  {key[:90]}")
+    # the 20 largest, and every kernel of the port's own csrc/ beside them
+    own = ("gram_kernel", "gram_train_kernel", "lower_mv_kernel",
+           "lower_tmv_kernel", "tri_inv_panel_kernel",
+           "panel_factor", "mirror_mm", "round_a_kernel", "chunk_sum")
+    for i, (key, us, count) in enumerate(rows):
+        if i < 20 or any(k in key for k in own):
+            print(f"  {us / 1e3 / reps:9.4f}  {count / reps:7.1f}  "
+                  f"{key[:90]}")
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out))

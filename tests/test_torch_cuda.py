@@ -23,7 +23,17 @@ def dev():
 
 
 @pytest.mark.parametrize("form", sorted(gram_pallas.FORMS))
-@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (37, 100, 3), (130, 65, 20)])
+@pytest.mark.parametrize("n,m,d", [
+    (1, 1, 1), (37, 100, 3), (130, 65, 20),
+    # one feature chunk of 8 and one past it; rows and columns just over
+    # the 128-wide tile, with a row stride that is not a multiple of 4
+    # floats (the scalar store path) and one that is
+    (129, 257, 8), (257, 129, 9), (129, 260, 8),
+    # enough tiles for 128-row tiles (the q = 1024 sweep's kind), ragged
+    # on both edges, with 16-byte and with scalar stores
+    (1100, 4100, 8), (1029, 4133, 3),
+    # the main path's shape at the hp capacity (the ascent's q = 64)
+    (64, 16896, 8)])
 def test_gram_kernel_ragged(dev, form, n, m, d):
     g = torch.Generator(device=dev).manual_seed(0)
     X1 = torch.rand((n, d), generator=g, device=dev)
@@ -36,15 +46,29 @@ def test_gram_kernel_ragged(dev, form, n, m, d):
     torch.testing.assert_close(k, p, rtol=2e-5, atol=2e-6)
 
 
-@pytest.mark.parametrize("N,n", [(100, 77), (64, 64), (129, 0)])
-def test_gram_train_kernel_ragged(dev, N, n):
+@pytest.mark.parametrize("form", sorted(gram_pallas.FORMS))
+@pytest.mark.parametrize("N,n,d", [
+    (100, 77, 5), (64, 64, 5), (129, 0, 5),
+    (1, 0, 8), (1, 1, 8), (100, 0, 8), (100, 100, 8), (100, 99, 8),
+    (129, 129, 8), (129, 128, 8), (256, 256, 8), (256, 129, 8),
+    (1000, 0, 8), (1000, 1000, 8), (1000, 385, 8), (1000, 383, 8),
+    (1000, 640, 20)])
+def test_gram_train_kernel_ragged(dev, form, N, n, d):
+    """The padded training covariance against its plain version, with its
+    padding rows exactly the identity's and the whole matrix exactly
+    symmetric (the kernel writes each off-diagonal tile and its
+    transpose)."""
     g = torch.Generator(device=dev).manual_seed(1)
-    X = torch.rand((N, 5), generator=g, device=dev)
+    X = torch.rand((N, d), generator=g, device=dev)
     args = (torch.tensor(1.1, device=dev), torch.tensor(0.7, device=dev),
-            torch.tensor(0.02, device=dev), n, "matern52")
+            torch.tensor(0.02, device=dev), n, form)
+    before = _cuda.LAUNCHES["gram_train"]
     k = gram_pallas.gram_train_pallas(X, *args)
+    assert _cuda.LAUNCHES["gram_train"] == before + 1
     torch.testing.assert_close(k, gram_pallas.gram_train_plain(X, *args),
                                rtol=2e-5, atol=2e-6)
+    assert torch.equal(k[n:], torch.eye(N, device=dev)[n:])
+    assert torch.equal(k, k.T)
 
 
 @pytest.mark.parametrize("N", [1, 31, 1000])
