@@ -16,11 +16,14 @@ Run from the repository root on a machine with one NVIDIA H100:
    and 1024, gram_train) also print each form's time, the achieved write
    rate and share of the bytes bound, and a launch floor (a one-element
    ``fill_`` replayed the same way); gram_train's padding rows must equal
-   the identity's and the matrix its transpose, exactly.  At N = 16896 it
-   adds the panel-factor
-   kernel (a real SPD block, and indefinite blocks that must give NaN from
-   the failed pivot on) and the whole blocked factorization beside
-   ``cholesky_ex``.
+   the identity's and the matrix its transpose, exactly.  The tri-inv
+   panel's upper triangles must be +0.0 and two launches the same bits;
+   it is timed in turns with the batched ``solve_triangular`` (library,
+   kernel, kernel, library), and the whole ``tri_inv_blocked`` is printed
+   beside ``solve_triangular(L, eye)`` (not a check).  At N = 16896 it
+   adds the panel-factor kernel (a real SPD block, and indefinite blocks
+   that must give NaN from the failed pivot on) and the whole blocked
+   factorization beside ``cholesky_ex``.
 4. Main path: the n = 10,000, d = 8 cached BO loop of bench.py through the
    port's entry points (fit, QueryCache.build with Linv, a bf16 mirror and
    defer_m = 32, then per iteration RandomRestarts(Rprop(20), 64 restarts,
@@ -264,23 +267,58 @@ def kernel_phase(dev, gen, N: int, n: int, ell: float, noise: float):
     log(f"kernel tri_inv_panel (csrc/tri_inv.cu), {N // B} blocks of {B}:")
     k = chol._tri_inv_panel(L, B)
     p = chol.tri_inv_panel_plain(L, B)
-    # forward substitution in another summation order: |err| <= 1e-4 max|X|
+    # another summation order (sub-inverses and merges, another FMA
+    # rounding): |err| <= 1e-4 max|X|
     tol = 1e-4 * float(p.abs().max())
     err = check_close("tri_inv_panel", k, p, tol, "1e-4 max|plain|")
+    # tri_inv_blocked copies each inverse whole into X, so the upper
+    # triangles must be +0.0 bit for bit; the order of the sums is fixed,
+    # so a second launch must give the same bits
+    upper = torch.triu(torch.ones((B, B), dtype=torch.bool, device=dev), 1)
+    if bool(k[:, upper].view(torch.int32).any()):
+        raise AssertionError("tri_inv_panel: an upper triangle is not 0.0")
+    if not torch.equal(k.view(torch.int32),
+                       chol._tri_inv_panel(L, B).view(torch.int32)):
+        raise AssertionError("tri_inv_panel: two launches differ")
+    log("  upper triangles +0.0 bit for bit, two launches the same bits: ok")
     nb = N // B
-    ms = cuda_ms(lambda: chol._tri_inv_panel(L, B))
-    plain = cuda_ms(lambda: chol.tri_inv_panel_plain(L, B), reps=3)
     D = torch.tril(chol._diag_blocks(L, B)).contiguous()
     eye = torch.eye(B, device=dev).expand(nb, B, B)
-    lib = cuda_ms(lambda: torch.linalg.solve_triangular(D, eye, upper=False))
+
+    def kern():
+        return chol._tri_inv_panel(L, B)
+
+    def library():
+        return torch.linalg.solve_triangular(D, eye, upper=False)
+
+    # in turns: library, kernel, kernel, library
+    turns = [cuda_ms(f) for f in (library, kern, kern, library)]
+    ms, lib = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    plain = cuda_ms(lambda: chol.tri_inv_panel_plain(L, B), reps=3)
     b = bound_ms((nb * B * (B + 1) / 2 + nb * B * B) * 4, nb * B ** 3 / 3)
-    log(f"  tri_inv_panel: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"solve_triangular {lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; the "
-        f"substitution chain is latency-bound)")
+    log(f"  tri_inv_panel: kernel {ms:.4f} ms ({turns[1]:.4f}, "
+        f"{turns[2]:.4f}), batched solve_triangular {lib:.4f} ms "
+        f"({turns[0]:.4f}, {turns[3]:.4f}; in turns: library, kernel, "
+        f"kernel, library), plain {plain:.4f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]}; the kernel's chain of steps is latency-bound)")
     entries["tri_inv_panel"] = _entry("tri_inv.cu",
                                       "limbo_tpu/ops/chol.py:264", err, ms,
                                       plain, b, lib)
+    entries["tri_inv_panel"]["turns"] = dict(library_ms=turns[0::3],
+                                             ms=turns[1:3])
     del k, p, D
+    # not a check: the panel's share of the blocked inverse it serves, and
+    # the library's solve of the full matrix
+    blocked = event_ms(lambda: chol.tri_inv_blocked(L))
+    eye = torch.eye(N, device=dev)
+    full = event_ms(lambda: torch.linalg.solve_triangular(L, eye,
+                                                          upper=False))
+    del eye
+    log(f"  not a check: tri_inv_blocked ({N}) {blocked:.3f} ms, of which "
+        f"the panel {ms / blocked:.4f}; solve_triangular(L, eye) {full:.3f} "
+        f"ms")
+    entries["tri_inv_panel"]["blocked"] = dict(tri_inv_blocked_ms=blocked,
+                                               solve_triangular_ms=full)
 
     Linv = chol.tri_inv_blocked(L)
     del L
@@ -945,7 +983,7 @@ def main() -> int:
     hp = hp_path(dev, gen, HP_ITERS)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
-             "bytes_share", "launch_floor_ms")
+             "bytes_share", "launch_floor_ms", "turns", "blocked")
     kernels = []
     for k, e in large.items():
         row = dict(name=k, route=e["route"], source=e["source"],

@@ -41,10 +41,14 @@ BLOCKED_MIN_N = 12288
 TRI_INV_MIN_N = 4096
 # The reference's B = 256 was a TPU choice: one f32 block is 256 KiB there,
 # above the 227 KB of shared memory a Hopper block may use.  The port's
-# panel kernels keep two B x B f32 buffers resident, 128 KB at B = 128, and
-# are compiled for this block only; the plain versions take any block.
+# panel kernels keep two B x B f32 buffers resident (and the tri-inv kernel
+# half of a third), 128 KB and more at B = 128, and are compiled for this
+# block only.  The plain panel factor takes any block; the plain tri-inv
+# any power-of-two multiple of TRI_INV_SUB, the kernel's diagonal
+# sub-block, one warp's width.
 TRI_INV_BLOCK = 128
 PANEL_BLOCK = 128
+TRI_INV_SUB = 32
 
 
 def _stock_cholesky(A: torch.Tensor) -> torch.Tensor:
@@ -107,14 +111,38 @@ def _diag_blocks(L: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def tri_inv_panel_plain(L: torch.Tensor, block: int) -> torch.Tensor:
-    """Plain version of the panel kernel: forward substitution, row by row,
-    for every diagonal block at once."""
+    """Plain version of the panel kernel, in the kernel's order, for every
+    diagonal block at once: the inverses of the 32 x 32 diagonal sub-blocks
+    by column-oriented substitution (x_m *= 1 / L_mm, then x_r -= L_rm x_m
+    for r > m), then merges by recursive doubling: for halves of width
+    h = 32, 64, ..., X21 = -X22 (L21 X11).  The block must be a power-of-two
+    multiple of 32."""
+    W = TRI_INV_SUB
+    s = block // W
+    if block % W or s & (s - 1):
+        raise ValueError(f"tri_inv_panel_plain: the block must be a "
+                         f"power-of-two multiple of {W}, got {block}")
+    nb = L.shape[0] // block
     D = torch.tril(_diag_blocks(L, block))
+    # the s diagonal sub-blocks of every block, (nb, s, W, W)
+    Dd = D.reshape(nb, s, W, s, W).diagonal(dim1=1, dim2=3) \
+        .permute(0, 3, 1, 2)
+    rcp = 1.0 / torch.diagonal(Dd, dim1=-2, dim2=-1)            # (nb, s, W)
+    Xd = torch.eye(W, dtype=L.dtype, device=L.device) \
+        .expand(nb, s, W, W).clone()
+    for m in range(W):
+        Xd[:, :, m, :] *= rcp[:, :, m:m + 1]
+        Xd[:, :, m + 1:, :] -= Dd[:, :, m + 1:, m:m + 1] * Xd[:, :, m:m + 1, :]
     X = torch.zeros_like(D)
-    for r in range(block):
-        acc = -(D[:, r:r + 1, :r] @ X[:, :r, :])[:, 0, :]        # (nb, B)
-        acc[:, r] += 1.0
-        X[:, r, :] = acc / D[:, r, r:r + 1]
+    for i in range(s):
+        X[:, i * W:(i + 1) * W, i * W:(i + 1) * W] = torch.tril(Xd[:, i])
+    h = W
+    while h < block:
+        for a in range(0, block, 2 * h):
+            b, e = a + h, a + 2 * h
+            T = D[:, b:e, a:b] @ X[:, a:b, a:b]
+            X[:, b:e, a:b] = -(X[:, b:e, b:e] @ T)
+        h *= 2
     return X
 
 
@@ -124,8 +152,10 @@ def _tri_inv_panel(L: torch.Tensor, block: int = TRI_INV_BLOCK
     lower-triangular L (N, N); N must be a multiple of B.
 
     CUDA kernel: ``csrc/tri_inv.cu`` tri_inv_panel_launch, replacing
-    limbo_tpu/ops/chol.py:_tri_inv_panel, one grid over all diagonal blocks.
-    Bound on the H100 by the latency of the substitution chain."""
+    limbo_tpu/ops/chol.py:_tri_inv_panel, one grid over all diagonal blocks,
+    reading only their lower triangles; the upper triangles of the output
+    are exactly 0.0.  Bound on the H100 by the latency of its dependent
+    steps (32-wide diagonal sub-inverses, then merges)."""
     N = L.shape[0]
     if L.ndim != 2 or L.shape[1] != N or N % block:
         raise ValueError(f"_tri_inv_panel: shape {tuple(L.shape)} with "

@@ -86,18 +86,82 @@ def test_trimv_kernel_ragged(dev, N, transpose):
     assert torch.equal(k, trimv._trimv_pallas(L, v, transpose))
 
 
-@pytest.mark.parametrize("nb", [1, 3])
-def test_tri_inv_panel_kernel(dev, nb):
-    g = torch.Generator(device=dev).manual_seed(3)
+def _block_factors(dev, nb, seed=3):
+    """(nb B, nb B) lower-triangular: its diagonal blocks the Cholesky
+    factors of random SPD blocks (well conditioned at any nb), its lower
+    off-diagonal blocks random."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     B = chol.TRI_INV_BLOCK
     N = nb * B
-    A = torch.randn((N, N), generator=g, device=dev)
-    L = torch.linalg.cholesky(A @ A.T / N + torch.eye(N, device=dev))
-    L = L.contiguous()
+    A = torch.randn((nb, B, B), generator=g, device=dev)
+    D = torch.linalg.cholesky(A @ A.transpose(1, 2) / B
+                              + torch.eye(B, device=dev))
+    L = torch.randn((N, N), generator=g, device=dev).tril_()
+    _diag(L).copy_(D.permute(1, 2, 0))
+    return L
+
+
+def _diag(L):
+    """(B, B, nb) view of the diagonal blocks of L."""
+    B = chol.TRI_INV_BLOCK
+    nb = L.shape[0] // B
+    return L.view(nb, B, nb, B).diagonal(dim1=0, dim2=2)
+
+
+# the main path's 80 blocks (N = 10240) and the hp path's 132 (N = 16896)
+@pytest.mark.parametrize("nb", [1, 3, 80, 132])
+def test_tri_inv_panel_kernel(dev, nb):
+    L = _block_factors(dev, nb)
+    B = chol.TRI_INV_BLOCK
     k = chol._tri_inv_panel(L, B)
     p = chol.tri_inv_panel_plain(L, B)
     torch.testing.assert_close(k, p, rtol=0,
                                atol=1e-5 * float(p.abs().max()))
+
+
+@pytest.mark.parametrize("nb", [3, 132])
+def test_tri_inv_panel_reads_only_the_lower_diagonal_blocks(dev, nb):
+    """NaN above the diagonal of every diagonal block and in every
+    off-diagonal block: the output is finite and matches the plain
+    version, which reads the same entries, as on clean input."""
+    L = _block_factors(dev, nb)
+    B = chol.TRI_INV_BLOCK
+    clean = chol.tri_inv_panel_plain(L, B)
+    keep = torch.zeros_like(L, dtype=torch.bool)
+    _diag(keep).copy_(torch.ones((B, B), dtype=torch.bool, device=dev)
+                      .tril()[..., None].expand(B, B, nb))
+    Ln = torch.where(keep, L, torch.full_like(L, float("nan")))
+    k = chol._tri_inv_panel(Ln, B)
+    assert bool(torch.isfinite(k).all())
+    torch.testing.assert_close(k, clean, rtol=0,
+                               atol=1e-5 * float(clean.abs().max()))
+    assert torch.equal(k, chol._tri_inv_panel(L, B))
+
+
+@pytest.mark.parametrize("nb", [3, 132])
+def test_tri_inv_panel_upper_zero_and_repeatable(dev, nb):
+    """The upper triangle of every inverse is +0.0 bit for bit, and two
+    launches give the same bits."""
+    L = _block_factors(dev, nb)
+    k = chol._tri_inv_panel(L)
+    upper = torch.triu(torch.ones_like(k[0], dtype=torch.bool), 1)
+    assert not bool(k[:, upper].view(torch.int32).any())
+    assert torch.equal(k.view(torch.int32),
+                       chol._tri_inv_panel(L).view(torch.int32))
+
+
+@pytest.mark.parametrize("b,r", [(0, 0), (1, 40), (131, 127)])
+def test_tri_inv_panel_zero_pivot_stays_in_its_block(dev, b, r):
+    """A zero on the diagonal of block b gives inf / NaN in that block's
+    inverse only: every other block is bit-equal to the clean run."""
+    nb = 132
+    L = _block_factors(dev, nb)
+    clean = chol._tri_inv_panel(L)
+    _diag(L)[r, r, b] = 0.0
+    k = chol._tri_inv_panel(L)
+    assert not bool(torch.isfinite(k[b]).all())
+    others = torch.arange(nb, device=dev) != b
+    assert torch.equal(k[others], clean[others])
 
 
 @pytest.mark.parametrize("q,K,N", [

@@ -115,6 +115,27 @@ def test_tri_inv_panel_all_blocks():
         np.testing.assert_allclose(got[i] @ blk, np.eye(64), atol=1e-4)
 
 
+@pytest.mark.parametrize("B", [32, 64, 128, 256])
+def test_tri_inv_panel_plain_upper_zero(B):
+    """The plain version in the kernel's order (32-wide sub-inverses, then
+    merges): every upper triangle is +0.0 bit for bit, also with NaN
+    above the diagonal of L, which it does not read."""
+    rng = np.random.default_rng(7)
+    L = _spd_factor(rng, 2 * B)
+    L[np.triu_indices(2 * B, 1)] = np.nan
+    X = chol.tri_inv_panel_plain(_t(L), B)
+    assert torch.isfinite(X).all()
+    upper = torch.triu(torch.ones((B, B), dtype=torch.bool), 1)
+    assert not X[:, upper].view(torch.int32).any()
+
+
+@pytest.mark.parametrize("B", [16, 48, 96, 160])
+def test_tri_inv_panel_plain_refuses_other_blocks(B):
+    """Only a power-of-two multiple of the 32-wide sub-block is taken."""
+    with pytest.raises(ValueError, match="power-of-two multiple of 32"):
+        chol.tri_inv_panel_plain(torch.eye(2 * B), B)
+
+
 def test_tri_inv_blocked_matches_reference():
     """Blocked inverse, f32, N = 500 (padded to the block on both sides):
     the port (B = 128) against the reference (B = 256, Pallas panels in
