@@ -43,7 +43,22 @@ Run from the repository root on a machine with one NVIDIA H100:
    pullback through the tri-inv kernel); then a recompute, the cache build
    and 34 cached BO iterations, with the launch counts and the posterior
    checked as on the main path.
-6. Prints a JSON line of each path's numbers, a JSON line of per-kernel
+6. bo path (``bo_path``): the library's own entry point,
+   ``limbo_tpu_torch.bo``, on an inline Hartmann-6 objective (d = 6):
+   (a) ``BOptimizer()`` at its defaults for 30 iterations, (b)
+   ``BOptimizerHPOpt(dim_in=6)`` for 20 (hp-opt at 10 and 20), (c) the
+   cached configuration (SquaredExpARD, a 4096-point init design at
+   capacity 5120, deferred appends, a bf16 mirror, a rebuild every 20) for
+   40.  Each run prints its set-up seconds and iterations/s, and must give
+   best_value == max(observed), samples in [0, 1]^6, a finite GP, a
+   posterior that agrees with f64 (in (a) and (b) within limits set by the
+   posterior's own f32 sensitivity, which a control must miss), and the
+   launches of its kernels: gram in every iteration of (a), and gram,
+   gram_train, tri-inv, trimv and the mirror in (c).  Each kernel a run
+   launched is then held against its plain version on the run's own state,
+   at the run's shapes (d = 6, the kernel's own form) and the kernel
+   phase's tolerances.
+7. Prints a JSON line of each path's numbers, a JSON line of per-kernel
    numbers, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -76,6 +91,16 @@ RESTARTS, STEPS, SWEEP, DEFER_M = 64, 20, 1024, 32
 # strategy cut to Rprop(5) x 2 repeats
 HP_N, HP_CAPACITY, HP_ELL, HP_NOISE, HP_Y_NOISE = 16_384, 16_896, 0.3, 0.09, 0.3
 HP_STEPS, HP_REPEATS, HP_ITERS = 5, 2, 34   # 34 > DEFER_M: one flush
+# the bo path: BOptimizer at the Hartmann-6 benchmark's width; (c) is the
+# cached configuration, its init design large enough for every kernel's
+# size switch (capacity 4096 + 40 + 1 -> 5120)
+BO_DIM, BO_A_ITERS, BO_B_ITERS = 6, 30, 20
+BO_C_INIT, BO_C_ITERS, BO_C_REFRESH = 4096, 40, 20
+# the uncached posterior of runs (a) and (b) against f64: the limit in
+# units of the posterior's move under one f32 rounding of its inputs and
+# distances, between the sound runs' largest reading (3.02) and the
+# smallest of a control's whose inputs move by 2^-9 (443), PERF.md
+BO_SLACK = 2 ** 5
 F32_U = 2.0 ** -24          # unit roundoff of f32
 PANEL_PIVOTS = (0, 31, 32, 40, 127)   # failed pivots the panel check tries
 
@@ -467,31 +492,68 @@ def mirror_rows(dev, gen, Xs, K, N):
     return e
 
 
-def posterior_f64(gp, Xq):
+def posterior_f64(gp, Xq, rel: float = 0.0, dist: bool = False):
     """The exact posterior of the stored data in f64 (plain Cholesky, no
-    cache, none of the port's code): mean and latent variance at Xq."""
+    cache, none of the port's code): mean and latent variance at Xq, for
+    SquaredExpARD (rank 0) and MaternFiveHalves with DataMean.  With
+    ``rel`` > 0, every input (the data, the queries and the kernel's
+    parameters) is first multiplied by 1 + rel e, and with ``dist`` every
+    squared distance is moved by rel e (|a|^2 + |b|^2), the size of the
+    terms of the expanded form |a|^2 + |b|^2 - 2 a.b the kernels compute
+    (utils/maths.sq_dist); e is uniform in [-1, 1] from a fixed seed."""
+    from limbo_tpu_torch.kernels import MaternFiveHalves, SquaredExpARD
+
+    g = torch.Generator().manual_seed(1)
+
+    def e_of(shape, dev):
+        return (torch.rand(shape, generator=g, dtype=torch.float64) * 2
+                - 1).to(dev)
+
+    def r(t):
+        t = t.double()
+        return t * (1.0 + rel * e_of(t.shape, t.device)) if rel else t
+
     k = gp.kernel
     n = gp.n
-    X = gp.x[:n].double()
-    Y = gp.y[:n].double()
-    inv_ell = torch.exp(-k.log_ell.double())
-    sf2 = torch.exp(2.0 * k.log_sigma.double())
+    X = r(gp.x[:n])
+    Y = r(gp.y[:n])
+    sf2 = r(torch.exp(2.0 * k.log_sigma.double()))
     # the f32 model's training diagonal: noise + 32 f32 eps * max(sf2, 1)
-    dadd = torch.exp(2.0 * k.log_noise.double()) \
+    dadd = r(torch.exp(2.0 * k.log_noise.double())) \
         + 32 * 2.0 ** -23 * torch.clamp(sf2, min=1.0)
-    Xs, Qs = X * inv_ell, Xq.double() * inv_ell
 
-    def r2(A, B):
-        return torch.cdist(A, B,
-                           compute_mode="donot_use_mm_for_euclid_dist") ** 2
+    def sq(A, B, sym):
+        d2 = torch.cdist(A, B,
+                         compute_mode="donot_use_mm_for_euclid_dist") ** 2
+        if not (rel and dist):
+            return d2
+        e = e_of(d2.shape, d2.device)
+        if sym:
+            e = (e + e.T) / 2
+        terms = (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :]
+        return torch.clamp(d2 + rel * e * terms, min=0.0)
 
-    K = sf2 * torch.exp(-0.5 * r2(Xs, Xs))
+    if isinstance(k, SquaredExpARD) and k.A.shape[1] == 0:
+        inv_ell = 1.0 / r(torch.exp(k.log_ell.double()))
+
+        def cov(A, B, sym=False):
+            return sf2 * torch.exp(-0.5 * sq(A * inv_ell, B * inv_ell, sym))
+    elif isinstance(k, MaternFiveHalves):
+        ell = r(torch.exp(k.log_l.double()))
+
+        def cov(A, B, sym=False):
+            t = math.sqrt(5.0) * torch.sqrt(sq(A, B, sym)) / ell
+            return sf2 * (1.0 + t + t * t / 3.0) * torch.exp(-t)
+    else:
+        raise TypeError(f"posterior_f64: {type(k).__name__}")
+    Qs = r(Xq)
+    K = cov(X, X, sym=True)
     K.diagonal().add_(dadd)
     Lc = torch.linalg.cholesky(K)
     del K
     ybar = Y.mean(dim=0)
     alpha = torch.cholesky_solve(Y - ybar, Lc)
-    ks = sf2 * torch.exp(-0.5 * r2(Qs, Xs))
+    ks = cov(Qs, X)
     mu = ks @ alpha + ybar
     z = torch.linalg.solve_triangular(Lc, ks.T, upper=False)
     var = torch.clamp(sf2 - (z * z).sum(dim=0), min=0.0)
@@ -956,6 +1018,274 @@ def hp_path(dev, gen, iters: int):
                 launches=launches, errs=errs, n_final=gp.n)
 
 
+def hartmann6(x):
+    """The objective of the bo path: -Hartmann6 (limbo's bench function,
+    limbo_tpu/benchmarks/functions.py:70-91, maximized: 3.32237 at its
+    optimum), from a (6,) numpy array to a (1,) one, in f64 on the host."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    s = torch.sum(_H6_A * (x[None, :] - _H6_P) ** 2, dim=1)
+    return torch.sum(_H_ALPHA * torch.exp(-s)).reshape(1).numpy()
+
+
+_H_ALPHA = torch.tensor([1.0, 1.2, 3.0, 3.2], dtype=torch.float64)
+_H6_A = torch.tensor([[10., 3., 17., 3.5, 1.7, 8.],
+                      [0.05, 10., 17., 0.1, 8., 14.],
+                      [3., 3.5, 1.7, 10., 17., 8.],
+                      [17., 8., 0.05, 10., 0.1, 14.]], dtype=torch.float64)
+_H6_P = torch.tensor([[0.1312, 0.1696, 0.5569, 0.0124, 0.8283, 0.5886],
+                      [0.2329, 0.4135, 0.8307, 0.3736, 0.1004, 0.9991],
+                      [0.2348, 0.1451, 0.3522, 0.2883, 0.3047, 0.6650],
+                      [0.4047, 0.8828, 0.8732, 0.5743, 0.1091, 0.0381]],
+                     dtype=torch.float64)
+
+
+class _Recorded:
+    """The objective, recording every point it is asked for and every value
+    it returns (an account kept apart from the GP's buffers)."""
+
+    def __init__(self, f):
+        self.f, self.xs, self.ys = f, [], []
+
+    def __call__(self, x):
+        y = self.f(x)
+        self.xs.append(x.copy())
+        self.ys.append(float(y[0]))
+        return y
+
+
+class _SetupClock:
+    """A stop criterion that never stops: at its first call, the end of the
+    run's set-up (init design evaluated and appended, cache built), it
+    waits on the card and notes the time."""
+
+    def __init__(self):
+        self.t = None
+
+    def __call__(self, state) -> bool:
+        if self.t is None:
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+        return False
+
+
+def check_posterior_exact(gp, Xq):
+    """The uncached posterior at Xq against the f64 posterior of the stored
+    data (posterior_f64).  The limits follow the posterior's own
+    conditioning: BO_SLACK times how far the f64 posterior moves when every
+    input, and the terms of every squared distance, move by up to one f32
+    rounding (2^-24 relative), for mu and for the variance.  A control
+    asserts that both limits can fail: the posterior from inputs moved by up
+    to one bf16 rounding (2^-9) must miss each of them."""
+    from limbo_tpu_torch.models import gp as gp_mod
+
+    with torch.no_grad():
+        mu, var = gp_mod.query(gp, Xq)
+    mu64, var64 = posterior_f64(gp, Xq)
+    mu_s, var_s = posterior_f64(gp, Xq, rel=F32_U, dist=True)
+    mu_c, var_c = posterior_f64(gp, Xq, rel=2.0 ** -9)
+    sens = dict(mu=float((mu_s - mu64).abs().max()),
+                var=float((var_s - var64).abs().max()))
+    tol = {k: BO_SLACK * v for k, v in sens.items()}
+    log(f"posterior at {Xq.shape[0]} points (n = {gp.n}, N = "
+        f"{gp.capacity}, {type(gp.kernel).__name__}); its move under one "
+        f"f32 rounding (2^-24): mu {sens['mu']:.3e}, var {sens['var']:.3e}:")
+    errs = dict(mu=check_close("mu vs the f64 posterior", mu[:, 0],
+                               mu64[:, 0], tol["mu"],
+                               f"{BO_SLACK} x that ({tol['mu']:.3e})"),
+                var=check_close("var vs the f64 posterior", var, var64,
+                                tol["var"],
+                                f"{BO_SLACK} x that ({tol['var']:.3e})"))
+    errs.update(sens_mu=sens["mu"], sens_var=sens["var"],
+                control_mu=float((mu_c - mu64).abs().max()),
+                control_var=float((var_c - var64).abs().max()))
+    log(f"  in units of that move: mu {errs['mu'] / sens['mu']:.3g}, var "
+        f"{errs['var'] / sens['var']:.3g}; control (inputs moved by 2^-9): mu "
+        f"{errs['control_mu']:.3e} ({errs['control_mu'] / sens['mu']:.3g}),"
+        f" var {errs['control_var']:.3e} "
+        f"({errs['control_var'] / sens['var']:.3g})")
+    if not (errs["control_mu"] > tol["mu"]
+            and errs["control_var"] > tol["var"]):
+        raise AssertionError("control: a posterior from inputs moved by "
+                             "2^-9 passes the posterior check")
+    return errs
+
+
+def bo_kernel_checks(where: str, gp, cache, gen, dev) -> float:
+    """The kernels a bo run launched, each held against its plain version
+    on the run's own state at the kernel phase's tolerances: gram (the
+    kernel's own form and input scaling, d = 6) at the ascent's q = 64 and
+    the sweep's q = 1024 against the stored x wherever the run takes the
+    kernel there (n m >= 512^2); with a cache, gram_train of the stored x at
+    its n, the tri-inv panel of the stored factor, and trimv on the cache's
+    Linv times a cross-covariance column of the run.  The mirror product is
+    check_posterior's.  Returns the largest error."""
+    from limbo_tpu_torch.kernels.base import effective_jitter
+    from limbo_tpu_torch.ops import chol, gram_pallas as gp_ops, trimv as tv
+
+    k = gp.kernel
+    N, n, d = gp.capacity, gp.n, gp.x.shape[1]
+    form, X2, sf2, inv_l = k._fused_train_args(gp.x)
+    log(f"{where}: its kernels on the run's state (N = {N}, n = {n}, "
+        f"d = {d}, {form}):")
+    err = 0.0
+    for q in (RESTARTS, SWEEP):
+        X1 = k._fused_train_args(
+            torch.rand((q, d), generator=gen, device=dev))[1]
+        if not gp_ops.use_pallas(X1, X2):
+            continue
+        kk = gp_ops.gram_pallas(X1, X2, sf2, inv_l, form)
+        p = gp_ops.gram_plain(X1, X2, sf2, inv_l, form)
+        err = max(err, check_close(f"gram {form} ({q}x{N}x{d})", kk, p,
+                                   2e-6 + 2e-5 * p.abs(),
+                                   "2e-6 + 2e-5|plain|"))
+    if cache is None:
+        return err
+    dadd = k.noise + effective_jitter(torch.float32) * torch.clamp(sf2,
+                                                                   min=1.0)
+    kk = gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, n, form)
+    p = gp_ops.gram_train_plain(X2, sf2, inv_l, dadd, n, form)
+    err = max(err, check_close(f"gram_train {form} ({N}, n={n})", kk, p,
+                               2e-6 + 2e-5 * p.abs(), "2e-6 + 2e-5|plain|"))
+    if not torch.equal(kk, kk.T):
+        raise AssertionError("gram_train is not exactly symmetric")
+    B = chol.TRI_INV_BLOCK
+    kk = chol._tri_inv_panel(gp.L, B)
+    p = chol.tri_inv_panel_plain(gp.L, B)
+    err = max(err, check_close(f"tri_inv_panel ({N // B} blocks of {B})", kk,
+                               p, 1e-4 * float(p.abs().max()),
+                               "1e-4 max|plain|"))
+    v = k.gram(torch.rand((1, d), generator=gen, device=dev), gp.x)[0] \
+        * gp.mask
+    T = torch.tril(cache.Linv)
+    for tr in (False, True):
+        A = T.abs().T if tr else T.abs()
+        err = max(err, check_close(
+            f"trimv transpose={tr} ({N})", tv._trimv_pallas(cache.Linv, v, tr),
+            tv.trimv_plain(cache.Linv, v, tr), 1e-4 * (A @ v.abs()),
+            "1e-4 (|tril L| |v|)"))
+    return err
+
+
+def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM):
+    """One BOptimizer.optimize run on the card with the launch counts set to
+    0 just before it and read just after; checks the run's result (best
+    value, samples in the box, finite GP).  Returns the state, the launch
+    counts and the timings."""
+    from limbo_tpu_torch.ops import _cuda
+
+    f = _Recorded(hartmann6)
+    clock = _SetupClock()
+    bo.stop = bo.stop + (clock,)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    state = bo.optimize(f, dim, generator=gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(_cuda.LAUNCHES)
+    setup, loop = clock.t - t0, t1 - clock.t
+    n = state.gp.n
+    per = {k: v / iters for k, v in launches.items() if v}
+    log(f"bo path ({name}): set-up {setup:.3f} s ({bo.init.count} init "
+        f"points, capacity {state.gp.capacity}), {iters} iterations "
+        f"{loop:.3f} s = {iters / loop:.3f} iters/s; best "
+        f"{state.best_value:.6f} (the optimum 3.32237)")
+    log(f"  launches: {launches}; per iteration: "
+        f"{ {k: round(v, 3) for k, v in per.items()} }")
+    if state.iteration != iters or n != bo.init.count + iters:
+        raise AssertionError(f"bo path ({name}): {state.iteration} "
+                             f"iterations, {n} samples")
+    if len(f.ys) != n:
+        raise AssertionError(f"bo path ({name}): {len(f.ys)} evaluations "
+                             f"for {n} samples")
+    # the GP stores observations in f32: the best of the f32 roundings is
+    # the rounding of the best
+    best = float(torch.tensor(max(f.ys), dtype=torch.float32))
+    if state.best_value != best:
+        raise AssertionError(f"bo path ({name}): best_value "
+                             f"{state.best_value} != max(observed) {best}")
+    X = torch.stack([torch.from_numpy(x) for x in f.xs])
+    if not (bool(((X >= 0) & (X <= 1)).all())
+            and bool(((state.gp.x[:n] >= 0) & (state.gp.x[:n] <= 1)).all())):
+        raise AssertionError(f"bo path ({name}): a sample outside [0, 1]^6")
+    check_finite(f"bo path ({name})", L=state.gp.L, alpha=state.gp.alpha)
+    log(f"  best_value == max(observed), {n} samples in [0, 1]^{dim}, GP "
+        f"finite: ok")
+    return state, launches, dict(setup_s=setup, loop_s=loop,
+                                 iters_per_s=iters / loop, iters=iters,
+                                 best=state.best_value,
+                                 launches_per_iter=per)
+
+
+def bo_path(dev, gen):
+    """The library's own entry point on the card, at the Hartmann-6
+    benchmark's width (d = 6): (a) BOptimizer() at its defaults (Matern-5/2
+    + DataMean, UCB, 64 x Rprop(20) from a 1024-point sweep, RandomSampling
+    (10), capacity 256) for BO_A_ITERS iterations; (b) BOptimizerHPOpt(
+    dim_in=6) (SquaredExpARD, KernelLFOpt(ParallelRepeater(Rprop(100), 4))
+    every 10 iterations) for BO_B_ITERS; (c) the cached configuration:
+    SquaredExpARD, a BO_C_INIT-point init design (capacity 5120), the K^-1
+    cache with deferred appends and a bf16 mirror, an exact rebuild every
+    BO_C_REFRESH appends, for BO_C_ITERS iterations."""
+    from limbo_tpu_torch.bo import BOptimizer, BOptimizerHPOpt, MaxIterations
+    from limbo_tpu_torch.bo import RandomSampling
+    from limbo_tpu_torch.kernels import SquaredExpARD
+
+    out, counts = {}, {}
+    state, counts["bo_a"], out["a"] = bo_run(
+        "a, defaults", BOptimizer(stop=(MaxIterations(BO_A_ITERS),)), dev,
+        gen, BO_A_ITERS)
+    check_counts("bo path (a)", counts["bo_a"], {"gram": (BO_A_ITERS, None)})
+    with uncounted():
+        out["a"]["kernel_err"] = bo_kernel_checks("bo path (a)", state.gp,
+                                                  None, gen, dev)
+        out["a"]["errs"] = check_posterior_exact(state.gp, torch.rand(
+            (RESTARTS, BO_DIM), generator=gen, device=dev))
+
+    state, counts["bo_b"], out["b"] = bo_run(
+        "b, BOptimizerHPOpt", BOptimizerHPOpt(
+            dim_in=BO_DIM, stop=(MaxIterations(BO_B_ITERS),)), dev, gen,
+        BO_B_ITERS)
+    check_counts("bo path (b)", counts["bo_b"], {"gram": (BO_B_ITERS, None)})
+    p = state.gp.kernel.params
+    log(f"  learned SquaredExpARD parameters "
+        f"{[round(x, 4) for x in p.tolist()]}")
+    if torch.equal(p, SquaredExpARD.create(dim=BO_DIM, device=dev).params):
+        raise AssertionError("bo path (b): hp-opt left the kernel as it was")
+    with uncounted():
+        out["b"]["kernel_err"] = bo_kernel_checks("bo path (b)", state.gp,
+                                                  None, gen, dev)
+        out["b"]["errs"] = check_posterior_exact(state.gp, torch.rand(
+            (RESTARTS, BO_DIM), generator=gen, device=dev))
+    del state
+
+    bo = BOptimizer(kernel=SquaredExpARD.create(dim=BO_DIM, device=dev),
+                    init=RandomSampling(BO_C_INIT),
+                    stop=(MaxIterations(BO_C_ITERS),), use_query_cache=True,
+                    cache_fast_update="deferred",
+                    cache_query_dtype=torch.bfloat16,
+                    cache_refresh_period=BO_C_REFRESH)
+    state, counts["bo_c"], out["c"] = bo_run("c, cached", bo, dev, gen,
+                                             BO_C_ITERS)
+    cache = state.cache
+    check_finite("bo path (c)", Linv=cache.Linv, Kinv=cache.Kinv,
+                 Kinv_q=cache.Kinv_q.float())
+    refreshes = BO_C_ITERS // BO_C_REFRESH
+    check_counts("bo path (c)", counts["bo_c"], {
+        "gram_train": (refreshes, None), "tri_inv_panel": (1 + refreshes, None),
+        "trimv": (2 * BO_C_ITERS, 2 * BO_C_ITERS),
+        "gram": ((STEPS + 2) * BO_C_ITERS, None),
+        "mirror_mm": ((STEPS + 2) * BO_C_ITERS, None)})
+    with uncounted():
+        out["c"]["kernel_err"] = bo_kernel_checks("bo path (c)", state.gp,
+                                                  cache, gen, dev)
+        out["c"]["errs"] = check_posterior(state.gp, cache, torch.rand(
+            (RESTARTS, BO_DIM), generator=gen, device=dev))
+    del state, cache, bo
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -981,6 +1311,9 @@ def main() -> int:
     res = main_path(dev, gen, args.iters)
     torch.cuda.empty_cache()
     hp = hp_path(dev, gen, HP_ITERS)
+    torch.cuda.empty_cache()
+    bo, bo_counts = bo_path(dev, gen)
+    by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
              "bytes_share", "launch_floor_ms", "turns", "blocked")
@@ -988,12 +1321,11 @@ def main() -> int:
     for k, e in large.items():
         row = dict(name=k, route=e["route"], source=e["source"],
                    replaces=e["replaces"],
-                   launches=res["launches"][k] + hp["launches"][k],
+                   launches=sum(c[k] for c in by_path.values()),
                    max_abs_err=e["max_abs_err"], ms=e["ms"],
                    plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
                    bound_by=e["bound_by"], library_ms=e["library_ms"],
-                   launches_by_path={"n10k": res["launches"][k],
-                                     "hp16k": hp["launches"][k]},
+                   launches_by_path={p: c[k] for p, c in by_path.items()},
                    at_N=HP_CAPACITY)
         if k in small:
             row[f"at_N{CAPACITY}"] = {x: small[k][x] for x in keys + extra
@@ -1009,6 +1341,7 @@ def main() -> int:
         x: hp[x] for x in ("iters_per_s", "fit_s", "eval_s", "hp_s",
                            "recompute_s", "build_s", "first_iter_s",
                            "peak_gb", "lml", "errs")} | {"card": card}}))
+    print(json.dumps({"bo_path": bo | {"card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

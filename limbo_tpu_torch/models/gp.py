@@ -91,6 +91,21 @@ class GP:
         return (torch.arange(self.capacity, device=self.x.device)
                 < self.n).to(self.x.dtype)
 
+    @property
+    def nb_samples(self) -> int:
+        return self.n
+
+    # -- convenience wrappers (limbo GP::query / mu / sigma) ------------------
+
+    def query(self, Xq) -> Tuple[torch.Tensor, torch.Tensor]:
+        return query(self, Xq)
+
+    def mu(self, Xq) -> torch.Tensor:
+        return query(self, Xq)[0]
+
+    def sigma_sq(self, Xq) -> torch.Tensor:
+        return query(self, Xq)[1]
+
 
 # ---------------------------------------------------------------------------
 # construction / (re)computation

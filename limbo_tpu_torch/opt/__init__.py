@@ -1,6 +1,9 @@
 from limbo_tpu_torch.opt.base import OptResult, clip01
-from limbo_tpu_torch.opt.compose import ParallelRepeater, RandomRestarts
+from limbo_tpu_torch.opt.compose import Chained, ParallelRepeater, RandomRestarts
 from limbo_tpu_torch.opt.gradient import Adam, GradientAscent, Rprop
+from limbo_tpu_torch.opt.search import (GridSearch, RandomPoint, RandomSweep,
+                                        argmax_candidates)
 
 __all__ = ["OptResult", "clip01", "Rprop", "Adam", "GradientAscent",
-           "ParallelRepeater", "RandomRestarts"]
+           "GridSearch", "RandomPoint", "RandomSweep", "argmax_candidates",
+           "ParallelRepeater", "RandomRestarts", "Chained"]

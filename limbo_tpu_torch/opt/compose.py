@@ -1,22 +1,25 @@
-"""Optimizer combinators: perturbed repeats and batched random restarts
-(port of ParallelRepeater and RandomRestarts of limbo_tpu/opt/compose.py).
+"""Optimizer combinators: perturbed repeats, batched random restarts and
+sequential chaining (port of limbo_tpu/opt/compose.py).
 
 RandomRestarts hands its restarts to the sub-optimizer as one (repeats, d)
 tensor, the counterpart of the reference's vmap.  ParallelRepeater runs its
 repeats one after another: its user is hyperparameter learning, where each
 repeat holds O(N^2) buffers at large n.  Every draw (perturbations, sweep
 points, random starts) is split from a deterministic ``from_inits`` /
-``from_sweep`` so that a test can feed the reference's own draws.
+``from_sweep`` so that a test can feed the reference's own draws.  Chained
+(src/limbo/opt/chained.hpp:60) runs optimizers in sequence, each from the
+previous result.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
 from limbo_tpu_torch.opt.base import OptResult
+from limbo_tpu_torch.utils.random import halton
 
 
 @dataclass
@@ -54,22 +57,35 @@ class ParallelRepeater:
 class RandomRestarts:
     """Global sweep + multi-start ascent, the acquisition-optimizer default.
 
-    A dense uniform sweep runs FIRST and, when it has at least ``repeats``
-    points, its best candidates seed the ascents; otherwise the starts are
-    uniform random and the sweep only competes at the end.
+    With ``seed_from_sweep`` (default), a dense sweep runs FIRST and, when
+    it has at least ``repeats`` points, its best candidates seed the
+    ascents; otherwise the starts are uniform random and the sweep only
+    competes at the end.  ``sweep_kind`` is "uniform" or "halton" (a
+    randomized Halton set, utils/random.halton).  With ``polish_k`` and
+    ``polish_steps``, the ``polish_k`` best carries of the ascent continue
+    for ``polish_steps`` more steps through the sub-optimizer's resumable
+    ``run(..., state=, iterations=)`` (Rprop's).
     """
 
     sub: object
     repeats: int = 16
     sweep_samples: int = 0
+    seed_from_sweep: bool = True
+    polish_k: int = 0
+    polish_steps: int = 0
+    sweep_kind: str = "uniform"
 
     def __call__(self, fun: Callable, init: torch.Tensor,
                  generator: torch.Generator, bounded: bool = True
                  ) -> OptResult:
         d = init.shape[0]
         kw = dict(generator=generator, dtype=init.dtype, device=init.device)
-        sweep_x = (torch.rand((self.sweep_samples, d), **kw)
-                   if self.sweep_samples > 0 else None)
+        sweep_x = None
+        if self.sweep_samples > 0:
+            sweep_x = (halton(generator, self.sweep_samples, d,
+                              dtype=init.dtype)
+                       if self.sweep_kind == "halton"
+                       else torch.rand((self.sweep_samples, d), **kw))
         starts = None
         if not self._seeded():
             starts = torch.rand((self.repeats, d), **kw)
@@ -77,7 +93,7 @@ class RandomRestarts:
                                generator=generator)
 
     def _seeded(self) -> bool:
-        return self.sweep_samples >= self.repeats
+        return self.seed_from_sweep and self.sweep_samples >= self.repeats
 
     def from_sweep(self, fun: Callable, init: torch.Tensor, sweep_x,
                    bounded: bool = True, starts=None, generator=None
@@ -94,7 +110,20 @@ class RandomRestarts:
         else:
             inits = starts.clone()
         inits[0] = init
-        res = self.sub(fun, inits, generator, bounded)
+        if self.polish_k > 0 and self.polish_steps > 0:
+            if not hasattr(self.sub, "run"):
+                raise ValueError(
+                    "polish_k/polish_steps require a resumable sub-optimizer "
+                    "exposing run(..., state=, iterations=); "
+                    f"{type(self.sub).__name__} has no run()")
+            res, state = self.sub.run(fun, inits, generator, bounded)
+            top = torch.topk(res.value, min(self.polish_k,
+                                            self.repeats)).indices
+            res, _ = self.sub.run(fun, None, None, bounded,
+                                  state=tuple(a[top] for a in state),
+                                  iterations=self.polish_steps)
+        else:
+            res = self.sub(fun, inits, generator, bounded)
         i = torch.argmax(res.value)
         best_x, best_v = res.x[i], res.value[i]
         if sweep_x is not None:
@@ -103,3 +132,25 @@ class RandomRestarts:
             best_x = torch.where(better, sweep_x[j], best_x)
             best_v = torch.where(better, sweep_v[j], best_v)
         return OptResult(x=best_x, value=best_v)
+
+
+@dataclass
+class Chained:
+    """Optimizers in sequence, each from the previous one's result; the
+    best result of any wins (limbo opt::Chained, chained.hpp:60)."""
+
+    subs: Tuple = ()
+
+    def __call__(self, fun: Callable, init: torch.Tensor,
+                 generator: torch.Generator = None, bounded: bool = False
+                 ) -> OptResult:
+        x = init
+        best = OptResult(x=init, value=torch.tensor(
+            -torch.inf, dtype=init.dtype, device=init.device))
+        for sub in self.subs:
+            res = sub(fun, x, generator, bounded)
+            x = res.x
+            better = res.value > best.value
+            best = OptResult(x=torch.where(better, res.x, best.x),
+                             value=torch.where(better, res.value, best.value))
+        return best

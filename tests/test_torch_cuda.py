@@ -6,6 +6,9 @@ Run them on a machine with one:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import copy
+
+import numpy as np
 import pytest
 import torch
 
@@ -317,3 +320,51 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         chol._panel_factor_pallas(torch.eye(128, device=dev).double())
     with pytest.raises(ValueError, match="bfloat16"):
         mirror.mirror_mm(X, torch.rand((3, 5), device=dev))
+
+
+def _bowl(x):
+    """A smooth objective on [0, 1]^d, maximum 0 at 0.3."""
+    return -np.sum((np.asarray(x, dtype=np.float64) - 0.3) ** 2, keepdims=True)
+
+
+def test_boptimizer_defaults_on_the_card(dev):
+    """BOptimizer() at its defaults (capacity 256): every iteration's
+    1024-point sweep against the 256 buffered rows is one gram launch, and
+    best_value is the best observation."""
+    from limbo_tpu_torch.bo import BOptimizer, MaxIterations
+
+    bo = BOptimizer(stop=(MaxIterations(3),))
+    before = _cuda.LAUNCHES["gram"]
+    st = bo.optimize(_bowl, 6,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    assert _cuda.LAUNCHES["gram"] - before >= 3
+    assert st.gp.capacity == 256 and st.gp.n == 13 and st.gp.x.is_cuda
+    ys = st.gp.y[:13, 0].cpu()
+    assert st.best_value == float(ys.max())
+    assert bool(((st.gp.x[:13] >= 0) & (st.gp.x[:13] <= 1)).all())
+
+
+def test_ask_tell_step_reaches_the_gram_kernel(dev):
+    """One ask at the defaults launches the gram kernel for its sweep; the
+    acquisition value it reports is UCB at the proposal, recomputed on a
+    CPU copy of the GP (plain path) within 1e-4."""
+    from limbo_tpu_torch import acqui
+    from limbo_tpu_torch.bo import BOptimizer
+
+    bo = BOptimizer()
+    st = bo.init_state(6, generator=torch.Generator(device=dev).manual_seed(1))
+    while st.pending_init:
+        x = bo.ask(st)
+        bo.tell(st, x, _bowl(x))
+    before = _cuda.LAUNCHES["gram"]
+    x = bo.ask(st)
+    assert _cuda.LAUNCHES["gram"] == before + 1
+    assert x.shape == (6,) and np.all((x >= 0) & (x <= 1))
+    g = st.gp
+    cpu = g.replace(kernel=copy.deepcopy(g.kernel).cpu(),
+                    mean=copy.deepcopy(g.mean).cpu(), x=g.x.cpu(),
+                    y=g.y.cpu(), L=g.L.cpu(), alpha=g.alpha.cpu())
+    want = acqui.UCB()(cpu, torch.from_numpy(x)[None, :])[0]
+    assert abs(st.last_acqui_value - float(want)) <= 1e-4
+    bo.tell(st, x, _bowl(x))
+    assert st.iteration == 1 and st.gp.n == 11
