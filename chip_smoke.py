@@ -58,7 +58,27 @@ Run from the repository root on a machine with one NVIDIA H100:
    launched is then held against its plain version on the run's own state,
    at the run's shapes (d = 6, the kernel's own form) and the kernel
    phase's tolerances.
-7. Prints a JSON line of each path's numbers, a JSON line of per-kernel
+7. graph path (``graph_path``): the main path's iteration captured as CUDA
+   graphs (``limbo_tpu_torch/bo/graph.BOStep``, two graphs: with and
+   without the deferred flush).  The same fitted n = 10k state in two
+   copies and two generators of one seed run 40 iterations (past one
+   flush), eagerly through MainPath and by replay; the proposals and every
+   tensor of the state (x, y, L, alpha, the mean, Linv, Kinv, Kinv_q, P,
+   ay, u_ones and the device counts) must hold the same bits, and both runs
+   launch gram 22, the mirror 22 and trimv 2 times an iteration (a replay
+   adds its graph's counts, taken at the capture).  Then the posterior
+   (``check_posterior``), and the captured and uncaptured iterations/s in
+   alternated groups on the same state.
+8. optimize_jit (``jit_path``), on -Hartmann6 as a torch function on the
+   card: (a) ``BOptimizer()`` at its defaults for 30 iterations (the exact
+   append, its finiteness flag read after each replay), (c) bo path (c)'s
+   cached configuration for 40, (f) the defaults with
+   ``MaxPredictedValue(ratio=0)``, which must freeze the run after its
+   first iteration.  Each checks its history (live rows finite, frozen
+   rows NaN, ``best`` monotone and equal to best_value, the samples the
+   GP's and in the box, ``effective_iterations``) and its launches; (a)
+   and (c) their posteriors as the bo path's.
+9. Prints a JSON line of each path's numbers, a JSON line of per-kernel
    numbers, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -103,6 +123,11 @@ BO_C_INIT, BO_C_ITERS, BO_C_REFRESH = 4096, 40, 20
 BO_SLACK = 2 ** 5
 F32_U = 2.0 ** -24          # unit roundoff of f32
 PANEL_PIVOTS = (0, 31, 32, 40, 127)   # failed pivots the panel check tries
+# the graph path: the main path's iteration captured, against the eager
+# one over GRAPH_ITERS iterations (past one flush), then its rate in
+# alternated groups; optimize_jit's runs (a), (c) and the frozen (f)
+GRAPH_ITERS, GRAPH_RATE_GROUPS, GRAPH_RATE_ITERS = 40, 4, 10
+JIT_A_ITERS, JIT_C_ITERS, JIT_F_ITERS = 30, 40, 8
 
 
 def log(msg: str) -> None:
@@ -601,18 +626,25 @@ class MainPath:
         return self.gp_mod.QueryCache.build(
             gp, with_Linv=True, qdtype=torch.bfloat16, defer_m=DEFER_M)
 
-    def acquire(self, gp, cache):
-        view = self.gp_mod.CachedGPView(gp, cache)
-        return self.opt(lambda Z: self.acq(view, Z), self.start, self.gen,
+    def propose(self, model, gen):
+        """The acquisition's maximizer over a model (a CachedGPView)."""
+        return self.opt(lambda Z: self.acq(model, Z), self.start, gen,
                         True).x
 
+    def acquire(self, gp, cache, gen=None):
+        return self.propose(self.gp_mod.CachedGPView(gp, cache),
+                            gen if gen is not None else self.gen)
+
+    @staticmethod
+    def objective(x):
+        return torch.sin(3.0 * torch.sum(x))[None]
+
     def append(self, gp, cache, x):
-        y = torch.sin(3.0 * torch.sum(x))[None]
-        return self.gp_mod.add_sample_cached(gp, cache, x, y,
+        return self.gp_mod.add_sample_cached(gp, cache, x, self.objective(x),
                                              fast_update="deferred")
 
-    def iterate(self, gp, cache):
-        return self.append(gp, cache, self.acquire(gp, cache))
+    def iterate(self, gp, cache, gen=None):
+        return self.append(gp, cache, self.acquire(gp, cache, gen))
 
 
 def check_posterior(gp, cache, Xq):
@@ -1286,6 +1318,274 @@ def bo_path(dev, gen):
     return out, counts
 
 
+def hartmann6_device(dev):
+    """-Hartmann6 (hartmann6's function) as a torch function on the card,
+    from a (6,) f32 tensor to a (1,) one: the objective optimize_jit
+    captures with its step."""
+    a, A, P = (t.to(device=dev, dtype=torch.float32)
+               for t in (_H_ALPHA, _H6_A, _H6_P))
+
+    def f(x):
+        s = torch.sum(A * (x[None, :] - P) ** 2, dim=1)
+        return torch.sum(a * torch.exp(-s)).reshape(1)
+    return f
+
+
+def clone_state(gp, cache):
+    """A copy of a fitted GP and its cache with storage of its own."""
+    import copy
+
+    gp2 = gp.replace(kernel=copy.deepcopy(gp.kernel),
+                     mean=copy.deepcopy(gp.mean), **{
+                         k: getattr(gp, k).clone()
+                         for k in ("x", "y", "L", "alpha", "n_dev")})
+    cache2 = cache.replace(**{
+        k: getattr(cache, k).clone() for k in (
+            "Kinv", "Linv", "Kinv_q", "P", "ay", "u_ones", "base_n_dev")})
+    return gp2, cache2
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors hold the same bits (so -0.0 is not 0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {4: torch.int32, 2: torch.int16, 8: torch.int64, 1: torch.uint8}
+    a, b = a.contiguous(), b.contiguous()
+    if a.is_floating_point():
+        a, b = (t.view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def graph_path(dev, seed: int, iters: int = GRAPH_ITERS):
+    """The main path's iteration captured (bo/graph.BOStep): the same
+    fitted n = 10k state in two copies and two generators of one seed;
+    `iters` iterations (past one flush) eagerly through MainPath on one
+    copy and by replay on the other must leave the same bits in the
+    proposals, x, y, L, Linv, Kinv, Kinv_q, P, alpha, ay, u_ones and the
+    counts (the same kernels run in the same order, on the same draws), with
+    the same launches an iteration; then the posterior and the launch
+    counts as on the main path, and the captured and uncaptured rates in
+    alternated groups.  Returns its numbers."""
+    from limbo_tpu_torch.bo.graph import BOStep
+    from limbo_tpu_torch.ops import _cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    path = MainPath(dev, gen)
+    t0 = time.perf_counter()
+    gp = path.fit()
+    cache = path.build(gp)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    gp_e, cache_e = clone_state(gp, cache)
+    gens = [torch.Generator(device=dev).manual_seed(seed + 1)
+            for _ in range(2)]
+    rows = iters + 2 * GRAPH_RATE_GROUPS * GRAPH_RATE_ITERS
+    xs_c = torch.full((rows, DIM), torch.nan, device=dev)
+    step = BOStep(gp, cache, lambda model, it: path.propose(model, gens[1]),
+                  path.objective, gens[1], fast_update="deferred",
+                  on_sample=lambda it, x, y: xs_c.index_copy_(
+                      0, it.reshape(1), x[None, :]))
+    del gp, cache
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    xs_e = []
+    for _ in range(iters):
+        x = path.acquire(gp_e, cache_e, gens[0])
+        gp_e, cache_e = path.append(gp_e, cache_e, x)
+        xs_e.append(x)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    launches_e = dict(_cuda.LAUNCHES)
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    step.step()                        # the warm-up iteration and capture
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(iters - 1):
+        step.step()
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    launches_c = dict(_cuda.LAUNCHES)
+    per_replay = step.launches()
+    log(f"graph path: fit + cache build {t_setup:.3f} s; {iters} eager "
+        f"iterations {t_eager:.3f} s; captured: warm-up + capture "
+        f"{t_capture:.3f} s, {iters - 1} replays {t_replay:.3f} s = "
+        f"{(iters - 1) / t_replay:.3f} iters/s (n {N_POINTS} -> "
+        f"{step.gp.n}, flushes at base_n {step.cache.base_n})")
+    log(f"  launches, eager {launches_e}; captured {launches_c}; per "
+        f"replay, by flush: {per_replay}")
+
+    gp_c, cache_c = step.gp, step.cache
+    pairs = dict(proposals=(torch.stack(xs_e), xs_c[:iters]),
+                 x=(gp_e.x, gp_c.x), y=(gp_e.y, gp_c.y), L=(gp_e.L, gp_c.L),
+                 alpha=(gp_e.alpha, gp_c.alpha),
+                 mean=(gp_e.mean.value, gp_c.mean.value),
+                 n=(gp_e.n_dev, gp_c.n_dev),
+                 Linv=(cache_e.Linv, cache_c.Linv),
+                 Kinv=(cache_e.Kinv, cache_c.Kinv),
+                 Kinv_q=(cache_e.Kinv_q, cache_c.Kinv_q),
+                 P=(cache_e.P, cache_c.P), ay=(cache_e.ay, cache_c.ay),
+                 u_ones=(cache_e.u_ones, cache_c.u_ones),
+                 base_n=(cache_e.base_n_dev, cache_c.base_n_dev))
+    differ = [k for k, (a, b) in pairs.items() if not same_bits(a, b)]
+    if differ:
+        raise AssertionError(f"graph path: captured and eager runs differ "
+                             f"in {differ}")
+    log(f"  captured == eager, bit for bit, over {iters} iterations: "
+        f"{', '.join(pairs)}: ok")
+    if not (gp_c.n == gp_e.n == N_POINTS + iters
+            and cache_c.base_n == cache_e.base_n != N_POINTS
+            and int(gp_c.n_dev) == gp_c.n
+            and int(cache_c.base_n_dev) == cache_c.base_n):
+        raise AssertionError(f"graph path: counts n {gp_c.n} / {gp_e.n}, "
+                             f"base_n {cache_c.base_n} / {cache_e.base_n}")
+    del gp_e, cache_e, xs_e, pairs
+    torch.cuda.empty_cache()
+    check_finite("graph path", L=gp_c.L, alpha=gp_c.alpha,
+                 Linv=cache_c.Linv, Kinv=cache_c.Kinv)
+    want = {"gram": ((STEPS + 2) * iters, (STEPS + 2) * iters),
+            "mirror_mm": ((STEPS + 2) * iters, (STEPS + 2) * iters),
+            "trimv": (2 * iters, 2 * iters)}
+    check_counts("graph path (eager)", launches_e, want)
+    check_counts("graph path (captured)", launches_c, want)
+    if any(launches_c[k] != launches_e[k] for k in launches_c):
+        raise AssertionError("graph path: the captured run's launches are "
+                             "not the eager run's")
+    with uncounted():
+        errs = check_posterior(gp_c, cache_c, torch.rand(
+            (RESTARTS, DIM), generator=gen, device=dev))
+
+    # the rates, captured and uncaptured alternated on the same state
+    best = {"captured": math.inf, "uncaptured": math.inf}
+    for g in range(GRAPH_RATE_GROUPS):
+        order = ("captured", "uncaptured")
+        for mode in order if g % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_RATE_ITERS):
+                step.step(eager=mode == "uncaptured")
+            torch.cuda.synchronize()
+            best[mode] = min(best[mode], (time.perf_counter() - t0)
+                             / GRAPH_RATE_ITERS)
+    check_finite("graph path", L=gp_c.L, alpha=gp_c.alpha)
+    rates = {k: 1.0 / v for k, v in best.items()}
+    log(f"  alternated, best of {GRAPH_RATE_GROUPS} groups of "
+        f"{GRAPH_RATE_ITERS}: captured {rates['captured']:.3f} iters/s, "
+        f"uncaptured {rates['uncaptured']:.3f} iters/s ({card_line()})")
+    del step, gp_c, cache_c
+    torch.cuda.empty_cache()
+    return dict(iters_per_s=rates, setup_s=t_setup, eager_s=t_eager,
+                capture_s=t_capture, replay_s=t_replay,
+                launches_per_replay={str(k): v for k, v in
+                                     per_replay.items()},
+                errs=errs), launches_e, launches_c
+
+
+def check_history(where: str, state, hist, iters: int, live: int) -> None:
+    """optimize_jit's history: `live` live rows then NaN rows and -inf
+    aggregates, `best` monotone from the init design's best, its last value
+    the state's best_value, the samples in the box."""
+    xs, ys, best = hist["samples"], hist["observations"], hist["best"]
+    n_eff = int(hist["effective_iterations"])
+    if n_eff != live or xs.shape != (iters, state.gp.dim_in):
+        raise AssertionError(f"{where}: {n_eff} effective iterations, "
+                             f"expected {live}; samples {tuple(xs.shape)}")
+    if not (bool(torch.isfinite(xs[:live]).all())
+            and bool(torch.isnan(xs[live:]).all())
+            and bool(torch.isnan(ys[live:]).all())):
+        raise AssertionError(f"{where}: live rows not finite or frozen rows "
+                             "not NaN")
+    if not bool((torch.diff(best) >= 0).all()):
+        raise AssertionError(f"{where}: best is not monotone")
+    if float(best[-1]) != state.best_value:
+        raise AssertionError(f"{where}: best {float(best[-1])} != "
+                             f"best_value {state.best_value}")
+    if not bool(((xs[:live] >= 0) & (xs[:live] <= 1)).all()):
+        raise AssertionError(f"{where}: a sample outside [0, 1]^d")
+    if not torch.equal(state.gp.x[state.gp.n - live:state.gp.n], xs[:live]):
+        raise AssertionError(f"{where}: the history's samples are not the "
+                             "GP's")
+
+
+def jit_run(name: str, bo, dev, gen, iters: int, live: int):
+    """One BOptimizer.optimize_jit run on the card with the launch counts
+    set to 0 just before it and read just after; checks its history."""
+    from limbo_tpu_torch.ops import _cuda
+
+    f = hartmann6_device(dev)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = bo.optimize_jit(f, BO_DIM, generator=gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    check_history(f"optimize_jit ({name})", state, hist, iters, live)
+    check_finite(f"optimize_jit ({name})", L=state.gp.L,
+                 alpha=state.gp.alpha)
+    log(f"optimize_jit ({name}): {t:.3f} s in all ({bo.init.count} init "
+        f"points, capacity {state.gp.capacity}, {live} of {iters} "
+        f"iterations live); best {state.best_value:.6f}; launches "
+        f"{launches}")
+    return state, launches, dict(seconds=t, best=state.best_value,
+                                 live=live)
+
+
+def jit_path(dev, gen):
+    """BOptimizer.optimize_jit on -Hartmann6 as a device function: (a) the
+    defaults cut to JIT_A_ITERS iterations (the exact append, its flag read
+    once an iteration); (c) bo_path's cached configuration for JIT_C_ITERS;
+    (f) the defaults with MaxPredictedValue(ratio=0) beside MaxIterations,
+    which must freeze after its first iteration.  Each checks its history
+    and its launches; (a) and (c) their posteriors."""
+    from limbo_tpu_torch.bo import (BOptimizer, MaxIterations,
+                                    MaxPredictedValue, RandomSampling)
+    from limbo_tpu_torch.kernels import SquaredExpARD
+
+    out, counts = {}, {}
+    state, counts["jit_a"], out["a"] = jit_run(
+        "a, defaults", BOptimizer(stop=(MaxIterations(JIT_A_ITERS),)), dev,
+        gen, JIT_A_ITERS, JIT_A_ITERS)
+    check_counts("optimize_jit (a)", counts["jit_a"],
+                 {"gram": (JIT_A_ITERS, JIT_A_ITERS)})
+    with uncounted():
+        out["a"]["errs"] = check_posterior_exact(state.gp, torch.rand(
+            (RESTARTS, BO_DIM), generator=gen, device=dev))
+
+    bo = BOptimizer(kernel=SquaredExpARD.create(dim=BO_DIM, device=dev),
+                    init=RandomSampling(BO_C_INIT),
+                    stop=(MaxIterations(JIT_C_ITERS),), use_query_cache=True,
+                    cache_fast_update="deferred",
+                    cache_query_dtype=torch.bfloat16)
+    state, counts["jit_c"], out["c"] = jit_run(
+        "c, cached", bo, dev, gen, JIT_C_ITERS, JIT_C_ITERS)
+    per = (STEPS + 2) * JIT_C_ITERS
+    check_counts("optimize_jit (c)", counts["jit_c"], {
+        "tri_inv_panel": (1, None), "gram": (per, per),
+        "mirror_mm": (per, per), "trimv": (2 * JIT_C_ITERS, 2 * JIT_C_ITERS)})
+    if state.cache.base_n == BO_C_INIT:
+        raise AssertionError("optimize_jit (c): no deferred flush happened")
+    with uncounted():
+        out["c"]["errs"] = check_posterior(state.gp, state.cache, torch.rand(
+            (RESTARTS, BO_DIM), generator=gen, device=dev))
+    del state, bo
+    torch.cuda.empty_cache()
+
+    bo = BOptimizer(stop=(MaxIterations(JIT_F_ITERS),
+                          MaxPredictedValue(ratio=0.0)))
+    state, counts["jit_f"], out["f"] = jit_run(
+        "f, frozen by MaxPredictedValue(ratio=0)", bo, dev, gen, JIT_F_ITERS,
+        1)
+    if state.gp.n != bo.init.count + 1:
+        raise AssertionError("optimize_jit (f): the state moved after its "
+                             "stop")
+    return out, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1313,7 +1613,11 @@ def main() -> int:
     hp = hp_path(dev, gen, HP_ITERS)
     torch.cuda.empty_cache()
     bo, bo_counts = bo_path(dev, gen)
-    by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts}
+    graph, graph_e, graph_c = graph_path(dev, args.seed)
+    jit, jit_counts = jit_path(dev, gen)
+    by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts,
+               "graph_eager_n10k": graph_e, "graph_n10k": graph_c,
+               **jit_counts}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
              "bytes_share", "launch_floor_ms", "turns", "blocked")
@@ -1342,6 +1646,8 @@ def main() -> int:
                            "recompute_s", "build_s", "first_iter_s",
                            "peak_gb", "lml", "errs")} | {"card": card}}))
     print(json.dumps({"bo_path": bo | {"card": card}}))
+    print(json.dumps({"graph_path": graph | {"card": card}}))
+    print(json.dumps({"jit_path": jit | {"card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

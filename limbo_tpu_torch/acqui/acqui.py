@@ -55,15 +55,27 @@ class UCB:
 class GP_UCB:
     """GP-UCB with iteration-dependent beta (acqui/gp_ucb.hpp:81-89):
     beta = sqrt(2 log(t^(D/2+2) pi^2 / (3 delta))), default delta = 0.1,
-    floored at 0 where limbo's formula is NaN (t = 0)."""
+    floored at 0 where limbo's formula is NaN (t = 0).
+
+    ``iteration`` is a Python number (the host loop: beta in f64 on the
+    host) or a tensor on the device (the captured loop, whose replays each
+    read the count of their own iteration: beta in X's dtype, as the
+    reference's traced formula, limbo_tpu/acqui/acqui.py:78-88)."""
 
     delta: float = 0.1
 
     def __call__(self, gp, X: torch.Tensor, aggregator=FirstElem,
                  iteration=0) -> torch.Tensor:
-        nt = max(float(iteration), 1e-10) ** (gp.dim_in / 2.0 + 2.0)
-        log_arg = max(nt * math.pi ** 2 / (3.0 * self.delta), 1.0)
-        beta = math.sqrt(2.0 * math.log(log_arg))
+        if torch.is_tensor(iteration):
+            t = iteration.to(X.dtype)
+            nt = torch.pow(torch.clamp(t, min=1e-10), gp.dim_in / 2.0 + 2.0)
+            log_arg = torch.clamp(nt * (math.pi ** 2) / (3.0 * self.delta),
+                                  min=1.0)
+            beta = torch.sqrt(2.0 * torch.log(log_arg))
+        else:
+            nt = max(float(iteration), 1e-10) ** (gp.dim_in / 2.0 + 2.0)
+            log_arg = max(nt * math.pi ** 2 / (3.0 * self.delta), 1.0)
+            beta = math.sqrt(2.0 * math.log(log_arg))
         mu, var = query_any(gp, X)
         return aggregator(mu) + beta * torch.sqrt(var)
 
@@ -95,5 +107,5 @@ class EI:
         Phi = 0.5 * torch.erfc(-Z / math.sqrt(2.0))
         ei = Xd * Phi + sigma * phi
         # limbo returns 0 when sigma ~ 0 or no samples yet (ei.hpp:95-97)
-        zero = (sigma < 1e-10) | (gp.n < 1)
+        zero = (sigma < 1e-10) | (gp.n_dev < 1)
         return torch.where(zero, torch.zeros_like(ei), ei)

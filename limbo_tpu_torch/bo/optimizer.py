@@ -21,24 +21,29 @@ hyperparameter re-optimization via hp_period, boptimizer.hpp:163).
 * Every draw (init design, sweep, restarts, hyperparameter restarts, a
   stop criterion's search) comes from one ``torch.Generator`` on the
   optimizer's device, where the reference splits a key.
+* ``optimize_jit(f, ...)``, the device-resident loop for an objective
+  written in torch on the device: the reference's one ``lax.scan``
+  becomes one captured iteration (bo/graph.py) replayed once an iteration,
+  with nothing read back from the card unless the run needs it (the
+  exact append's finiteness flag, a stop criterion's decision).
 
-Not ported yet (ROADMAP.md queue 1): ``optimize_jit`` (the next slice, with
-the CUDA graph of the iteration), ``optimize_batch`` (needs acqui/qei.py,
-item 7), the model families "spgp" and "iterative" and ``max_model_points``
-with their ``model_options`` / ``model_refit_period`` (item 6), and the
-"refined" and ``True`` cached-append modes and ``cache_lite`` (item 4).
-They raise ``NotImplementedError``.
+Not ported yet (ROADMAP.md queue 1): ``optimize_batch`` (needs
+acqui/qei.py, item 7), the model families "spgp" and "iterative" and
+``max_model_points`` with their ``model_options`` / ``model_refit_period``
+(item 6), and the "refined" and ``True`` cached-append modes and
+``cache_lite`` (item 4).  They raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from limbo_tpu_torch.acqui.acqui import EI, UCB, FirstElem
+from limbo_tpu_torch.bo.graph import BOStep, Captured
 from limbo_tpu_torch.bo.init_designs import RandomSampling
 from limbo_tpu_torch.bo.stop import MaxIterations
 from limbo_tpu_torch.kernels import MaternFiveHalves
@@ -188,6 +193,7 @@ class BOptimizer:
         self.cache_refresh_period = cache_refresh_period
         self.cache_query_dtype = cache_query_dtype
         self.cache_defer_m = cache_defer_m
+        self.model_type = model_type
         self.dtype = dtype
         self.res_dir = (make_res_dir(res_base_dir)
                         if (stats_enabled and res_base_dir is not None
@@ -263,15 +269,12 @@ class BOptimizer:
             self._ingest(state, x_next, self._checked(f(x_next), x_next))
         return state
 
-    def _propose(self, state: BOState) -> np.ndarray:
-        """Maximize the acquisition over the current model; records its
-        value and the predicted mean at the maximizer, and returns the
-        maximizer, all three from one copy to the host."""
-        model = (gp_mod.CachedGPView(state.gp, state.cache)
-                 if self.use_query_cache else state.gp)
+    def _maximize(self, model, iteration, generator):
+        """The acquisition optimizer's result over ``model`` at
+        ``iteration`` (a number, or a device tensor in optimize_jit), on
+        the device, with nothing read back."""
         acqui = self.acqui
         aggregator = getattr(self, "_aggregator", FirstElem)
-        iteration = state.total_iterations
         f_max = None
         if isinstance(acqui, EI):
             with torch.no_grad():
@@ -284,8 +287,15 @@ class BOptimizer:
 
         start = torch.full((model.dim_in,), 0.5, dtype=self.dtype,
                            device=self.device)
-        res = self.acqui_optimizer(acq_fn, start, state.generator,
-                                   self.bounded)
+        return self.acqui_optimizer(acq_fn, start, generator, self.bounded)
+
+    def _propose(self, state: BOState) -> np.ndarray:
+        """Maximize the acquisition over the current model; records its
+        value and the predicted mean at the maximizer, and returns the
+        maximizer, all three from one copy to the host."""
+        model = (gp_mod.CachedGPView(state.gp, state.cache)
+                 if self.use_query_cache else state.gp)
+        res = self._maximize(model, state.total_iterations, state.generator)
         with torch.no_grad():
             mu, _ = query_any(model, res.x[None, :])
             host = torch.cat([res.x, res.value.reshape(1), mu[0]]
@@ -403,13 +413,111 @@ class BOptimizer:
         for stat in self.stats:
             stat(self, state)
 
+    # -- the device-resident loop ---------------------------------------------
+
+    def optimize_jit(self, f: Callable, dim_in: int, dim_out: int = 1,
+                     aggregator: Callable = FirstElem,
+                     generator: Optional[torch.Generator] = None,
+                     n_iterations: Optional[int] = None
+                     ) -> Tuple[BOState, dict]:
+        """Run the whole BO loop on the device (limbo_tpu/bo/optimizer.py:
+        616-750, its one ``lax.scan``): one iteration (the acquisition's
+        maximizer, the objective, the append) is captured as a CUDA graph
+        and replayed ``n_iterations`` times (default: the MaxIterations
+        budget); on the CPU the same step runs eagerly.
+
+        f: a torch function from a (d,) tensor to a (p,) tensor on this
+        optimizer's device that never waits on the card (it is captured
+        with the step).  The init design is evaluated and appended first,
+        eagerly.  Stop criteria other than MaxIterations become a freeze
+        mask: each needs ``device_stop``, checked after every iteration (and
+        after the hp cadence) in a captured step of its own whose decision
+        the host reads; the iterations after a stop emit NaN rows and -inf
+        aggregates.  The hp cadence (every ``hp_period`` iterations) runs
+        between replays, at the reference's place, and copies its learned
+        hyperparameters, refit factor and rebuilt cache into the captured
+        tensors.  As the reference's loop, this one has no periodic exact
+        cache rebuild (``cache_refresh_period``) and writes no stats.
+
+        Returns (BOState, history): history holds ``samples`` (iters, d),
+        ``observations`` (iters, p), ``best`` (iters,), the cummax of the
+        aggregated observations from the init design's best on, and
+        ``effective_iterations``, all on the device, read by the caller.
+        """
+        if self.model_type != "gp":
+            raise NotImplementedError(
+                f"optimize_jit runs the exact-GP loop only; model_type="
+                f"{self.model_type!r} is supported by optimize()")
+        mask_criteria = tuple(s for s in self.stop
+                              if not isinstance(s, MaxIterations))
+        for s in mask_criteria:
+            if not hasattr(s, "device_stop"):
+                raise TypeError(
+                    f"stop criterion {type(s).__name__} lacks device_stop(); "
+                    "it cannot run inside optimize_jit - use optimize()")
+        gen = self._generator(generator)
+        self._aggregator = aggregator
+        iters = (n_iterations if n_iterations is not None
+                 else self._max_iterations())
+        kw = dict(dtype=self.dtype, device=self.device)
+        gp = self._make_gp(dim_in, dim_out, self._capacity(
+            extra=max(0, iters - self._max_iterations())))
+        X0 = self.init(gen, dim_in, dtype=self.dtype)
+        Y0 = [f(x).to(self.dtype).reshape(dim_out) for x in X0]
+        for x, y in zip(X0, Y0):
+            gp = add_sample_any(gp, x, y)
+        cache = self._build_cache(gp) if self.use_query_cache else None
+        with torch.no_grad():
+            agg0 = aggregator(gp_mod.observations(gp))
+            best0 = (torch.max(agg0) if agg0.numel()
+                     else torch.tensor(-torch.inf, **kw))
+        best = best0.clone()
+        xs = torch.full((iters, dim_in), torch.nan, **kw)
+        ys = torch.full((iters, dim_out), torch.nan, **kw)
+        aggs = torch.full((iters,), -torch.inf, **kw)
+
+        def record(it, x, y):
+            a = aggregator(y[None, :])[0]
+            row = it.reshape(1)
+            xs.index_copy_(0, row, x[None, :])
+            ys.index_copy_(0, row, y[None, :])
+            aggs.index_copy_(0, row, a.reshape(1))
+            best.copy_(torch.maximum(best, a))
+
+        step = BOStep(gp, cache, lambda model, it: self._maximize(
+            model, it, gen).x, f, gen, fast_update=self.cache_fast_update,
+            on_sample=record)
+        stopped = torch.zeros((), dtype=torch.bool, device=self.device)
+
+        def check_stop():
+            flag = torch.zeros((), dtype=torch.bool, device=self.device)
+            for s in mask_criteria:
+                flag = flag | s.device_stop(step.gp, best, gen, aggregator)
+            stopped.copy_(flag)
+
+        stop = Captured({None: check_stop}, gen, self.device)
+        for it in range(iters):
+            step.step()
+            if (self.hp_opt is not None and self.hp_period > 0
+                    and (it + 1) % self.hp_period == 0):
+                fitted = self.hp_opt(step.gp, gen)
+                step.assign(fitted, self._build_cache(fitted)
+                            if self.use_query_cache else None)
+            if mask_criteria:
+                stop.run(None)
+                if bool(stopped):
+                    break
+        history = {"samples": xs, "observations": ys,
+                   "best": torch.cummax(torch.maximum(aggs, best0),
+                                        dim=0).values,
+                   "effective_iterations": torch.sum(torch.isfinite(aggs))}
+        state = BOState(gp=step.gp, generator=gen, iteration=iters,
+                        total_iterations=iters, aggregator=aggregator,
+                        cache=step.cache)
+        return state, history
+
     # -- not ported yet ------------------------------------------------------
 
     def optimize_batch(self, *args, **kwargs):
         """Batch BO with q-EI proposals (limbo_tpu/bo/optimizer.py:567)."""
         raise _not_ported("optimize_batch (q-EI, acqui/qei.py)", "item 7")
-
-    def optimize_jit(self, *args, **kwargs):
-        """The device-resident loop (limbo_tpu/bo/optimizer.py:616)."""
-        raise _not_ported("optimize_jit (the captured BO iteration)",
-                          "the CUDA-graph slice, item 1")

@@ -4,6 +4,8 @@ Reference: src/limbo/stop/{max_iterations,max_predicted_value,
 chain_criteria}.hpp.  A criterion is a callable ``(state) -> bool``
 evaluated on the host between iterations; the driver OR-folds a tuple of
 them (limbo chains via boost::fusion::accumulate, chain_criteria.hpp:65).
+A criterion with ``device_stop`` also runs inside ``optimize_jit``, where
+its decision stays on the device as a 0-d bool tensor.
 """
 
 from __future__ import annotations
@@ -42,9 +44,13 @@ class MaxPredictedValue:
         default_factory=lambda: RandomRestarts(sub=Rprop(iterations=50),
                                                repeats=8, sweep_samples=512))
 
-    def device_stop(self, gp, best_value, generator, aggregator) -> bool:
-        """The decision for a model, a best value and the generator of the
-        optimizer's draws."""
+    def device_stop(self, gp, best_value, generator,
+                    aggregator) -> torch.Tensor:
+        """The decision for a model, a best value (a number or a tensor on
+        the model's device) and the generator of the optimizer's draws, as
+        a 0-d bool tensor on the device: nothing here waits on the card, so
+        optimize_jit's captured stop check can hold it (the reference's
+        jit-safe check, limbo_tpu/bo/stop.py:46)."""
         def mean_val(X):
             mu, _ = query_any(gp, X)
             return aggregator(mu)
@@ -54,8 +60,8 @@ class MaxPredictedValue:
         res = self.optimizer(mean_val, start, generator, True)
         best = torch.as_tensor(best_value, dtype=gp.x.dtype,
                                device=gp.x.device)
-        return bool(best >= self.ratio * res.value)
+        return best >= self.ratio * res.value
 
     def __call__(self, state) -> bool:
-        return self.device_stop(state.gp, state.best_value, state.generator,
-                                state.aggregator)
+        return bool(self.device_stop(state.gp, state.best_value,
+                                     state.generator, state.aggregator))

@@ -5,15 +5,23 @@ Cholesky updates and posterior queries, plus the reference's K^{-1} query
 cache for large n.
 
 * **Padded fixed-capacity buffers.**  The dataset lives in (capacity, d)
-  tensors with a valid count ``n``; the padded block of the kernel matrix is
-  the identity (utils.maths.masked_identity_gram).  ``n`` (and the cache's
-  ``base_n``) are Python ints: the host loop needs them without waiting on
-  the card, and the reference's ``lax.cond`` on them become Python ``if``s.
+  tensors with a valid count; the padded block of the kernel matrix is the
+  identity (utils.maths.masked_identity_gram).  The count is kept twice:
+  ``n`` (and the cache's ``base_n``), a Python int for what the host decides
+  without waiting on the card (capacity checks, the deferred flush cadence,
+  slicing the valid rows), and ``n_dev`` (``base_n_dev``), a 0-d int64
+  tensor on the GP's device, the reference's int32 array
+  (limbo_tpu/models/gp.py:72, :391).  Every read on an iteration's path
+  (the mask, the rows an append writes, the pending-pivot column, the
+  pending mask of a query) takes the tensor, so a captured iteration
+  (bo/graph.py) replays with the row of its replay and not of its capture.
 * **Updates in place.**  Where the reference donates the GP and cache
   buffers to a jitted step (bench.py:106), the appends here write row ``i``
   of x, y, L and Linv, the pending-pivot column of P, and the flushed K^{-1}
-  and its mirror in place: the GP and cache passed in share those tensors
-  with the ones returned, and must not be used afterwards.
+  and its mirror in place (``index_copy_`` at the device count): the GP and
+  cache passed in share those tensors with the ones returned, and must not
+  be used afterwards.  alpha, the mean, ``ay``, ``u_ones`` and the counts
+  come back as new tensors; bo/graph.py copies them into its captured ones.
 * **Multi-output convention** as limbo: one shared kernel matrix for all
   ``p`` outputs, observations (n, p), alpha (n, p).
 
@@ -51,6 +59,16 @@ def _round_capacity(n: int) -> int:
     return max(64, -(-n // 64) * 64)
 
 
+def _count(n: int, device) -> torch.Tensor:
+    """A count as a 0-d int64 tensor on `device` (a fill, no host copy)."""
+    return torch.full((), int(n), dtype=torch.int64, device=device)
+
+
+def _put_row(A: torch.Tensor, i: torch.Tensor, row: torch.Tensor) -> None:
+    """A[i] = row in place, at the device index i (0-d)."""
+    A.index_copy_(0, i.reshape(1), row.reshape(1, -1))
+
+
 @dataclass
 class GP:
     """Padded exact-GP state.
@@ -58,10 +76,12 @@ class GP:
     Fields:
       kernel, mean: hyperparameter modules.
       x: (N, d) padded sample buffer.       y: (N, p) padded observations.
-      n: number of valid samples (Python int).
+      n: number of valid samples (Python int, for the host).
       L: (N, N) lower Cholesky factor of the masked training covariance
          (identity on the padded block).
       alpha: (N, p) = K^{-1} (y - m(x)), zero on the padded block.
+      n_dev: n as a 0-d int64 tensor on x's device (made from n when not
+         given), the count every read on an iteration's path takes.
     """
 
     kernel: object
@@ -71,8 +91,13 @@ class GP:
     n: int
     L: torch.Tensor
     alpha: torch.Tensor
+    n_dev: Optional[torch.Tensor] = None
 
     replace = dataclasses.replace
+
+    def __post_init__(self):
+        if self.n_dev is None:
+            self.n_dev = _count(self.n, self.x.device)
 
     @property
     def capacity(self) -> int:
@@ -89,7 +114,7 @@ class GP:
     @property
     def mask(self) -> torch.Tensor:
         return (torch.arange(self.capacity, device=self.x.device)
-                < self.n).to(self.x.dtype)
+                < self.n_dev).to(self.x.dtype)
 
     @property
     def nb_samples(self) -> int:
@@ -196,6 +221,18 @@ def add_sample(gp: GP, x_new, y_new) -> GP:
     leaves alpha or the row non-finite refits from the stored data (that
     check waits on the card).  Row n of x, y and L is written in place.
     """
+    gp2, ok = add_sample_ok(gp, x_new, y_new)
+    if not bool(ok):
+        return recompute(gp2)
+    return gp2
+
+
+def add_sample_ok(gp: GP, x_new, y_new) -> Tuple[GP, torch.Tensor]:
+    """add_sample without its retry: the appended GP and a 0-d bool tensor,
+    true when alpha and the new row are finite.  Nothing here waits on the
+    card; the caller decides (add_sample refits when it is false, the
+    captured step reads it after its replay, as the reference's lax.cond
+    does on the device)."""
     i = gp.n
     if i >= gp.capacity:
         raise ValueError(f"GP is full (capacity {gp.capacity})")
@@ -215,26 +252,23 @@ def add_sample(gp: GP, x_new, y_new) -> GP:
                        / torch.clamp(ll, min=torch.finfo(dtype).tiny))
     d = torch.sqrt(kxx - ll_clamped)
 
-    e_i = _onehot(gp.capacity, i, gp.x)
+    e_i = _onehot(gp.capacity, gp.n_dev, gp.x)
     new_row = l * mask + d * e_i
-    gp.L[i] = new_row
-    gp.x[i] = x_new
-    gp.y[i] = y_new
-    gp2 = gp.replace(n=i + 1)
+    _put_row(gp.L, gp.n_dev, new_row)
+    _put_row(gp.x, gp.n_dev, x_new)
+    _put_row(gp.y, gp.n_dev, y_new)
+    gp2 = gp.replace(n=i + 1, n_dev=gp.n_dev + 1)
     mask2 = gp2.mask
     mean = prepare_mean(gp2.mean, gp2.y, mask2)
     centered = (gp2.y - mean(gp2.x)) * mask2[:, None]
     alpha = _cho_solve(gp2.L, centered)
     ok = torch.isfinite(alpha).all() & torch.isfinite(new_row).all()
-    if not bool(ok):
-        return recompute(gp2)
-    return gp2.replace(mean=mean, alpha=alpha)
+    return gp2.replace(mean=mean, alpha=alpha), ok
 
 
-def _onehot(N: int, i: int, like: torch.Tensor) -> torch.Tensor:
-    e = torch.zeros((N,), dtype=like.dtype, device=like.device)
-    e[i] = 1.0
-    return e
+def _onehot(N: int, i: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """e_i of length N in like's dtype, for a device index i (0-d)."""
+    return (torch.arange(N, device=like.device) == i).to(like.dtype)
 
 
 def grow(gp: GP, new_capacity: int) -> GP:
@@ -305,8 +339,10 @@ class QueryCache:
     an optional low-precision (bf16) mirror of Kinv, read only by the
     variance quadratic form.  Deferred mode (defer_m > 0) also carries P,
     the (N, m) pending scaled pivots, base_n (n at the last flush, a Python
-    int), and ay = Kinv (y mask), u_ones = Kinv mask, from which alpha is
-    recovered for constant-type means.  See limbo_tpu/models/gp.py:336-401.
+    int, with base_n_dev, the same count on the device, made from base_n
+    when not given), and ay = Kinv (y mask), u_ones = Kinv mask, from which
+    alpha is recovered for constant-type means.  See
+    limbo_tpu/models/gp.py:336-401.
     """
 
     Kinv: Optional[torch.Tensor] = None
@@ -316,8 +352,13 @@ class QueryCache:
     base_n: Optional[int] = None
     ay: Optional[torch.Tensor] = None
     u_ones: Optional[torch.Tensor] = None
+    base_n_dev: Optional[torch.Tensor] = None
 
     replace = dataclasses.replace
+
+    def __post_init__(self):
+        if self.base_n is not None and self.base_n_dev is None:
+            self.base_n_dev = _count(self.base_n, self.Kinv.device)
 
     @classmethod
     def build(cls, gp: GP, with_Linv: bool = False, qdtype=None,
@@ -334,7 +375,8 @@ class QueryCache:
             a = Kinv @ rhs
             defer = dict(P=torch.zeros((gp.capacity, defer_m),
                                        dtype=gp.x.dtype, device=gp.x.device),
-                         base_n=gp.n, ay=a[:, :-1], u_ones=a[:, -1])
+                         base_n=gp.n, base_n_dev=gp.n_dev.clone(),
+                         ay=a[:, :-1], u_ones=a[:, -1])
         return cls(Kinv=Kinv, Linv=Linv if with_Linv else None,
                    Kinv_q=Kinv.to(qdtype) if qdtype is not None else None,
                    **defer)
@@ -408,7 +450,7 @@ def query_cached(gp: GP, cache: QueryCache,
     Kq = cache.Kinv_q if cache.Kinv_q is not None else cache.Kinv
     if cache.P is not None:
         idx = torch.arange(gp.capacity, device=ks.device)
-        pend = ((idx >= cache.base_n) & (idx < gp.n)).to(ks.dtype)
+        pend = ((idx >= cache.base_n_dev) & (idx < gp.n_dev)).to(ks.dtype)
         quad = _sym_quad_diag_corr(ks, Kq, cache.P, pend)
     else:
         quad = _sym_quad_diag(ks, Kq)
@@ -445,6 +487,10 @@ class CachedGPView:
         return self.gp.n
 
     @property
+    def n_dev(self):
+        return self.gp.n_dev
+
+    @property
     def mask(self):
         return self.gp.mask
 
@@ -462,7 +508,8 @@ class CachedGPView:
 
 
 def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
-                      fast_update=False) -> Tuple[GP, QueryCache]:
+                      fast_update=False, flush: Optional[bool] = None
+                      ) -> Tuple[GP, QueryCache]:
     """add_sample + O(N^2) block-inverse update of the K^{-1} cache
     (limbo_tpu/models/gp.py:632-775).
 
@@ -478,7 +525,10 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
     s is clipped to [max(diag_add, eps_eff * kappa), kappa], the Schur
     floor that keeps every bordered update positive definite
     (limbo_tpu/models/gp.py:676-684).  Kinv, its mirror and row i of x, y,
-    L and Linv are updated in place.
+    L and Linv are updated in place.  ``flush`` (deferred mode only) forces
+    the flush of the pending pivots on or off; by default it happens when P
+    is full, by the host counts.  A captured iteration is captured once
+    with and once without it (bo/graph.py).
     """
     i = gp.n
     if i >= gp.capacity:
@@ -492,10 +542,10 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
     diag_add = gp.kernel.train_diag_add(x_new[None, :])[0]
     kappa = gp.kernel.k_diag(x_new[None, :])[0] + diag_add
     s_floor = torch.maximum(diag_add, effective_jitter(dtype) * kappa)
-    e_i = _onehot(gp.capacity, i, gp.x)
+    e_i = _onehot(gp.capacity, gp.n_dev, gp.x)
     if fast_update == "deferred":
         return _add_sample_deferred(gp, cache, x_new, y_new, k_vec, kappa,
-                                    e_i, s_floor)
+                                    e_i, s_floor, flush)
     if cache.P is not None:
         raise ValueError(
             "this cache was built with defer_m > 0; immediate-update modes "
@@ -517,14 +567,14 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
     v = u - e_i
     Kinv = cache.Kinv
     Kinv.addr_(v / s, v)
-    Kinv[i, i] -= 1.0
+    Kinv.diagonal().sub_(e_i)          # Kinv[i, i] -= 1 at the device index
     d = torch.sqrt(s)
-    gp.L[i] = l * mask + d * e_i
+    _put_row(gp.L, gp.n_dev, l * mask + d * e_i)
     if cache.Linv is not None:
-        cache.Linv[i] = -(u / d) * mask + (1.0 / d) * e_i
-    gp.x[i] = x_new
-    gp.y[i] = y_new
-    gp2 = gp.replace(n=i + 1)
+        _put_row(cache.Linv, gp.n_dev, -(u / d) * mask + (1.0 / d) * e_i)
+    _put_row(gp.x, gp.n_dev, x_new)
+    _put_row(gp.y, gp.n_dev, y_new)
+    gp2 = gp.replace(n=i + 1, n_dev=gp.n_dev + 1)
     mask2 = gp2.mask
     mean = prepare_mean(gp2.mean, gp2.y, mask2)
     centered = (gp2.y - mean(gp2.x)) * mask2[:, None]
@@ -535,14 +585,15 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
 
 
 def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
-                         kappa, e_i, s_floor) -> Tuple[GP, QueryCache]:
+                         kappa, e_i, s_floor, flush=None
+                         ) -> Tuple[GP, QueryCache]:
     """The "deferred" cached append (limbo_tpu/models/gp.py:778-884).
 
     The same pivot as "linv"; the correction vv^T/s - e_i e_i^T is kept as
     the scaled column v/sqrt(s) in P and applied at query time, and flushed
     into Kinv and its mirror with one (N, m) @ (m, N) product when P is
-    full.  alpha comes from the exact bordered recurrences of ay and u_ones
-    (constant-type means only).
+    full (or as ``flush`` says).  alpha comes from the exact bordered
+    recurrences of ay and u_ones (constant-type means only).
     """
     if cache.Linv is None or cache.P is None:
         raise ValueError("deferred updates need QueryCache.build("
@@ -553,34 +604,39 @@ def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
             "fast_update='deferred' supports constant-type means only "
             "(NullMean/ConstantMean/DataMean); FunctionARD needs the dense "
             "alpha path - use fast_update='linv'")
-    i = gp.n
+    i, i_dev = gp.n, gp.n_dev
+    m = cache.P.shape[1]
+    count = i - cache.base_n              # pivots pending BEFORE this append
+    if count >= m:
+        raise ValueError(f"{count} pivots pending, P holds {m}: a flush was "
+                         "skipped")
+    if flush is None:
+        flush = count + 1 >= m
     mask = gp.mask
     l = trimv(cache.Linv, k_vec) * mask
     u = trimv(cache.Linv, l, transpose=True) * mask
     s = torch.clamp(kappa - torch.dot(k_vec, u), s_floor, kappa)
     d = torch.sqrt(s)
     v = u - e_i
-    gp.L[i] = l * mask + d * e_i
-    cache.Linv[i] = -(u / d) * mask + (1.0 / d) * e_i
-    gp.x[i] = x_new
-    gp.y[i] = y_new
-    gp2 = gp.replace(n=i + 1)
+    _put_row(gp.L, i_dev, l * mask + d * e_i)
+    _put_row(cache.Linv, i_dev, -(u / d) * mask + (1.0 / d) * e_i)
+    _put_row(gp.x, i_dev, x_new)
+    _put_row(gp.y, i_dev, y_new)
+    gp2 = gp.replace(n=i + 1, n_dev=i_dev + 1)
     mask2 = gp2.mask
     ym = gp2.y * mask2[:, None]
     # exact bordered recurrences (O(N p)); v is masked so padded rows stay 0
     ay = cache.ay + v[:, None] * ((v @ ym) / s)[None, :]
     u_ones = cache.u_ones + v * (torch.dot(v, mask2) / s)
-    m = cache.P.shape[1]
-    count = i - cache.base_n              # pivots pending BEFORE this append
     P = cache.P
-    P[:, count] = v / d
-    if count + 1 >= m:
+    P.index_copy_(1, (i_dev - cache.base_n_dev).reshape(1), (v / d)[:, None])
+    if flush:
         # flush: one (N, m) @ (m, N) GEMM into Kinv, the diagonal cancel of
         # the m pending identity slots, the mirror refresh, and ay/u_ones
         # re-derived from the fresh Kinv so recurrence rounding never
         # outlives a flush window
         idx = torch.arange(gp.capacity, device=P.device)
-        pend = ((idx >= cache.base_n) & (idx <= i)).to(P.dtype)
+        pend = ((idx >= cache.base_n_dev) & (idx <= i_dev)).to(P.dtype)
         Kinv = cache.Kinv
         Kinv.addmm_(P, P.T)
         Kinv.diagonal().sub_(pend)
@@ -588,7 +644,8 @@ def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
         if cache.Kinv_q is not None:
             cache.Kinv_q.copy_(Kinv)
         P.zero_()
-        cache = cache.replace(base_n=i + 1, ay=a[:, :-1], u_ones=a[:, -1])
+        cache = cache.replace(base_n=i + 1, base_n_dev=i_dev + 1,
+                              ay=a[:, :-1], u_ones=a[:, -1])
     else:
         cache = cache.replace(ay=ay, u_ones=u_ones)
     mean = prepare_mean(gp2.mean, gp2.y, mask2)

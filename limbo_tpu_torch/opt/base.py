@@ -28,6 +28,13 @@ class OptResult:
     value: torch.Tensor   # f(x): scalar, or (R,) for a batch
 
 
+def take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """t[i] for a 0-d index tensor on t's device (an argmax), without the
+    host read that Python indexing with a 0-d tensor makes: the optimizers
+    run inside a captured BO iteration (bo/graph.py)."""
+    return t.index_select(0, i.reshape(1))[0]
+
+
 def clip01(x: torch.Tensor, bounded: bool) -> torch.Tensor:
     """Project onto [0,1]^d when bounded (limbo rprop.hpp:100-105 clamps)."""
     return torch.clamp(x, 0.0, 1.0) if bounded else x

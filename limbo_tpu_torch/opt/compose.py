@@ -18,7 +18,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from limbo_tpu_torch.opt.base import OptResult
+from limbo_tpu_torch.opt.base import OptResult, take
 from limbo_tpu_torch.utils.random import halton
 
 
@@ -50,7 +50,8 @@ class ParallelRepeater:
         res = [self.sub(fun, x0, generator, bounded) for x0 in inits]
         value = torch.stack([r.value for r in res])
         i = torch.argmax(value)
-        return OptResult(x=torch.stack([r.x for r in res])[i], value=value[i])
+        return OptResult(x=take(torch.stack([r.x for r in res]), i),
+                         value=take(value, i))
 
 
 @dataclass
@@ -125,12 +126,12 @@ class RandomRestarts:
         else:
             res = self.sub(fun, inits, generator, bounded)
         i = torch.argmax(res.value)
-        best_x, best_v = res.x[i], res.value[i]
+        best_x, best_v = take(res.x, i), take(res.value, i)
         if sweep_x is not None:
             j = torch.argmax(sweep_v)
-            better = sweep_v[j] > best_v
-            best_x = torch.where(better, sweep_x[j], best_x)
-            best_v = torch.where(better, sweep_v[j], best_v)
+            better = take(sweep_v, j) > best_v
+            best_x = torch.where(better, take(sweep_x, j), best_x)
+            best_v = torch.where(better, take(sweep_v, j), best_v)
         return OptResult(x=best_x, value=best_v)
 
 

@@ -13,7 +13,7 @@ from typing import Callable
 
 import torch
 
-from limbo_tpu_torch.opt.base import OptResult
+from limbo_tpu_torch.opt.base import OptResult, take
 from limbo_tpu_torch.utils.random import grid_points, random_vectors
 
 
@@ -22,7 +22,7 @@ def argmax_candidates(fun: Callable, X: torch.Tensor) -> OptResult:
     with torch.no_grad():
         vals = fun(X)
     i = torch.argmax(vals)
-    return OptResult(x=X[i], value=vals[i])
+    return OptResult(x=take(X, i), value=take(vals, i))
 
 
 @dataclass

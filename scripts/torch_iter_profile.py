@@ -13,6 +13,12 @@ UCB, deferred appends), runs one warm-up iteration, then:
   the device time by kernel, the device-busy total and the idle share of
   the traced wall time, and writes the Chrome trace to ``--trace`` if given.
 
+With ``--graph`` it profiles the same iteration captured as CUDA graphs
+(``bo/graph.BOStep``, the path of ``bench_torch.py``): after the warm-up
+iteration and the capture, it times ``--iters`` replays (the host's time to
+issue one, and the time to its synchronize), then traces ``--trace-iters``
+replays as above.
+
 With ``--hp`` it profiles, instead, ``--trace-iters`` f32 LML + gradient
 evaluations of chip_smoke.py's hp path (n = 16,384, capacity 16896, after
 the blocked-Cholesky fit), the unit of work of its hyperparameter learning.
@@ -20,7 +26,7 @@ the blocked-Cholesky fit), the unit of work of its hyperparameter learning.
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 scripts/torch_iter_profile.py [--iters 10] [--trace-iters 3]
-        [--trace out/trace.json] [--hp]
+        [--trace out/trace.json] [--graph | --hp]
 """
 
 from __future__ import annotations
@@ -87,6 +93,36 @@ def trace(step, reps: int, what: str, out) -> None:
         prof.export_chrome_trace(str(out))
 
 
+def profile_graph(path, gp, cache, args, card) -> int:
+    """The main path's iteration captured: replay times, then a trace."""
+    from limbo_tpu_torch.bo.graph import BOStep
+
+    step = BOStep(gp, cache, lambda model, it: path.propose(model, path.gen),
+                  path.objective, path.gen, fast_update="deferred")
+    t0 = time.perf_counter()
+    step.step()                                   # warm-up and capture
+    torch.cuda.synchronize()
+    print(f"warm-up iteration and capture: "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms", flush=True)
+    t_issue, t_all = [], []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        step.step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t_issue.append(t1 - t0)
+        t_all.append(time.perf_counter() - t0)
+    print(f"per replay over {args.iters}: issued in "
+          f"{1e3 * sum(t_issue) / len(t_issue):.3f} ms (min "
+          f"{1e3 * min(t_issue):.3f}), to its synchronize "
+          f"{1e3 * sum(t_all) / len(t_all):.3f} ms (min "
+          f"{1e3 * min(t_all):.3f}), host clock; launches per replay "
+          f"{step.launches()}", flush=True)
+    trace(step.step, args.trace_iters, "captured iterations", args.trace)
+    print(f"card: {card}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -96,6 +132,8 @@ def main() -> int:
                     help="write the Chrome trace of the traced iterations")
     ap.add_argument("--hp", action="store_true",
                     help="profile LML + gradient evaluations of the hp path")
+    ap.add_argument("--graph", action="store_true",
+                    help="profile the captured iteration (bo/graph.BOStep)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_iter_profile: CUDA is not available", file=sys.stderr)
@@ -124,6 +162,8 @@ def main() -> int:
     path = cs.MainPath(dev, gen)
     gp = path.fit()
     cache = path.build(gp)
+    if args.graph:
+        return profile_graph(path, gp, cache, args, card)
     gp, cache = path.iterate(gp, cache)                       # warm-up
     torch.cuda.synchronize()
     t_acq, t_app = [], []

@@ -6,9 +6,10 @@ capacity buckets (pure arithmetic on a reference BOptimizer that never
 runs), MaxPredictedValue's decision, one ask -> tell step from the
 reference's init points with the reference's sweep injected, every stats
 writer's lines, and the GP accessors.  No test runs the reference's
-``optimize`` loop or ``optimize_jit``.  The port's own loop is run on the
-CPU at a small size: best-so-far, resume, NaN guards, ask/tell against
-optimize, the cached append modes, and every option not ported yet.
+``optimize`` loop or ``optimize_jit`` (tests/test_torch_graph.py runs the
+port's).  The port's own loop is run on the CPU at a small size:
+best-so-far, resume, NaN guards, ask/tell against optimize, the cached
+append modes, and every option not ported yet.
 """
 
 import os
@@ -374,6 +375,5 @@ def test_options_not_ported_raise(kw, exc):
 
 def test_loops_not_ported_raise():
     bo = BOptimizer(device="cpu")
-    for run in (bo.optimize_batch, bo.optimize_jit):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            run(quad, D)
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        bo.optimize_batch(quad, D)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, at ragged shapes the main path does
 not reach (edges of tiles, strips and blocks), against their plain
-versions.  Marked ``cuda``: without a card each test skips with a reason.
+versions; and the captured BO iteration (bo/graph.py) against the eager
+one.  Marked ``cuda``: without a card each test skips with a reason.
 Run them on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -363,8 +364,172 @@ def test_ask_tell_step_reaches_the_gram_kernel(dev):
     g = st.gp
     cpu = g.replace(kernel=copy.deepcopy(g.kernel).cpu(),
                     mean=copy.deepcopy(g.mean).cpu(), x=g.x.cpu(),
-                    y=g.y.cpu(), L=g.L.cpu(), alpha=g.alpha.cpu())
+                    y=g.y.cpu(), L=g.L.cpu(), alpha=g.alpha.cpu(),
+                    n_dev=g.n_dev.cpu())
     want = acqui.UCB()(cpu, torch.from_numpy(x)[None, :])[0]
     assert abs(st.last_acqui_value - float(want)) <= 1e-4
     bo.tell(st, x, _bowl(x))
     assert st.iteration == 1 and st.gp.n == 11
+
+
+# ---------------------------------------------------------------------------
+# the captured BO iteration (bo/graph.py)
+# ---------------------------------------------------------------------------
+
+def _graph_state(dev, n=4000, capacity=4096, defer_m=4):
+    """A fitted SE-ARD + DataMean GP at capacity 4096 (every kernel's size
+    switch: trimv from 4096, gram at 64 x 4096 = 512^2) and its cache with
+    Linv, a bf16 mirror and deferred appends."""
+    from limbo_tpu_torch.kernels import SquaredExpARD
+    from limbo_tpu_torch.means import DataMean
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    X = torch.rand((n, 8), generator=g, device=dev)
+    Y = torch.sin(3.0 * X.sum(dim=1, keepdim=True))
+    gp = gp_mod.fit(SquaredExpARD.create(dim=8, device=dev),
+                    DataMean.create(device=dev), X, Y, capacity=capacity,
+                    device=dev)
+    return gp, gp_mod.QueryCache.build(gp, with_Linv=True,
+                                       qdtype=torch.bfloat16,
+                                       defer_m=defer_m)
+
+
+def _graph_propose(gen):
+    """64 restarts x Rprop(3) from a 128-point sweep, on UCB."""
+    from limbo_tpu_torch.acqui import UCB
+    from limbo_tpu_torch.opt import RandomRestarts, Rprop
+
+    opt = RandomRestarts(sub=Rprop(iterations=3), repeats=64,
+                         sweep_samples=128)
+
+    def propose(model, it):
+        start = torch.full((8,), 0.5, device=model.x.device)
+        return opt(lambda Z: UCB()(model, Z), start, gen, True).x
+    return propose
+
+
+def _graph_objective(x):
+    return torch.sin(3.0 * torch.sum(x))[None]
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32) \
+        if t.is_floating_point() else t
+
+
+def test_captured_step_equals_eager_bit_for_bit(dev):
+    """The same state in two copies and two generators of one seed: ten
+    iterations (two flushes of defer_m = 4) captured on one and eager on
+    the other leave the same bits everywhere, and the device counts follow
+    the host's."""
+    from limbo_tpu_torch.bo.graph import BOStep
+
+    steps, xs = [], []
+    for eager in (False, True):
+        gp, cache = _graph_state(dev)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        rows = torch.zeros((10, 8), device=dev)
+        step = BOStep(gp, cache, _graph_propose(gen), _graph_objective, gen,
+                      fast_update="deferred",
+                      on_sample=lambda it, x, y, rows=rows: rows.index_copy_(
+                          0, it.reshape(1), x[None, :]))
+        for _ in range(10):
+            step.step(eager=eager)
+        steps.append(step)
+        xs.append(rows)
+    assert steps[0].graphs.graphs is not None
+    assert steps[1].graphs.graphs is None
+    assert torch.equal(_bits(xs[0]), _bits(xs[1]))
+    for name in ("x", "y", "L", "alpha", "n_dev"):
+        assert torch.equal(_bits(getattr(steps[0].gp, name)),
+                           _bits(getattr(steps[1].gp, name))), name
+    for name in ("Kinv", "Linv", "Kinv_q", "P", "ay", "u_ones",
+                 "base_n_dev"):
+        assert torch.equal(_bits(getattr(steps[0].cache, name)),
+                           _bits(getattr(steps[1].cache, name))), name
+    gp, cache = steps[0].gp, steps[0].cache
+    assert gp.n == 4010 and cache.base_n == 4008
+    assert int(gp.n_dev) == 4010 and int(cache.base_n_dev) == 4008
+
+
+def test_two_replays_draw_different_sweeps(dev):
+    """The sweep is drawn before each replay into the graph's buffer: two
+    replays see two sweeps, and the draws are the eager run's."""
+    from limbo_tpu_torch.bo.graph import BOStep
+
+    gp, cache = _graph_state(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    step = BOStep(gp, cache, _graph_propose(gen), _graph_objective, gen,
+                  fast_update="deferred")
+    step.step()
+    draws = step.graphs.draws
+    assert len(draws.buffers) == 1 and draws.buffers[0].shape == (128, 8)
+    sweeps = []
+    for _ in range(2):
+        step.step()
+        sweeps.append(draws.buffers[0].clone())
+    assert not torch.equal(sweeps[0], sweeps[1])
+    g = torch.Generator(device=dev).manual_seed(3)
+    want = [torch.rand((128, 8), generator=g, device=dev) for _ in range(3)]
+    assert torch.equal(sweeps[0], want[1]) and torch.equal(sweeps[1], want[2])
+
+
+def test_capture_of_a_step_that_waits_on_the_card_raises(dev):
+    """An objective that reads the card (.item()) fails the warm-up under
+    the sync check, and the step keeps failing: no eager fallback."""
+    from limbo_tpu_torch.bo.graph import BOStep
+
+    gp, cache = _graph_state(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def objective(x):
+        return torch.tensor([float(torch.sin(3.0 * torch.sum(x)).item())],
+                            device=x.device)
+
+    step = BOStep(gp, cache, _graph_propose(gen), objective, gen,
+                  fast_update="deferred")
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            step.step()
+        assert step.graphs.graphs is None
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_replays_add_their_graphs_launch_counts(dev):
+    """The capture launches nothing and counts nothing; each replay adds
+    its graph's counts: per iteration gram 5 (sweep, 3 steps, final), the
+    mirror 5 and trimv 2, with or without the flush."""
+    from limbo_tpu_torch.bo.graph import BOStep
+
+    gp, cache = _graph_state(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    step = BOStep(gp, cache, _graph_propose(gen), _graph_objective, gen,
+                  fast_update="deferred")
+    want = {"gram": 5, "mirror_mm": 5, "trimv": 2}
+    _cuda.reset_launches()
+    step.step()                      # warm-up (an eager iteration), capture
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == want
+    assert step.launches() == {False: want, True: want}
+    for _ in range(6):
+        step.step()
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+        k: 7 * v for k, v in want.items()}
+
+
+def test_optimize_jit_on_the_card(dev):
+    """optimize_jit at the defaults for 4 iterations, by replay: a finite
+    GP, four live rows, the sweep's gram launch each iteration."""
+    from limbo_tpu_torch.bo import BOptimizer, MaxIterations
+
+    def f(x):
+        return -torch.sum((x - 0.3) ** 2).reshape(1)
+
+    before = _cuda.LAUNCHES["gram"]
+    st, hist = BOptimizer(stop=(MaxIterations(4),)).optimize_jit(
+        f, 6, generator=torch.Generator(device=dev).manual_seed(0))
+    assert _cuda.LAUNCHES["gram"] - before == 4
+    assert int(hist["effective_iterations"]) == 4 and st.gp.n == 14
+    assert bool(torch.isfinite(hist["samples"]).all())
+    assert bool(torch.isfinite(st.gp.L).all())
+    assert st.best_value == float(hist["best"][-1])
