@@ -78,7 +78,24 @@ Run from the repository root on a machine with one NVIDIA H100:
    rows NaN, ``best`` monotone and equal to best_value, the samples the
    GP's and in the box, ``effective_iterations``) and its launches; (a)
    and (c) their posteriors as the bo path's.
-9. Prints a JSON line of each path's numbers, a JSON line of per-kernel
+9. suite path (``suite_path``): the benchmark suites through their entry
+   points.  (a) ``bo_suite.run_suite`` runs each of the 7
+   ``default_variants()`` on Hartmann6 (d = 6) at the suite's protocol (10
+   init points, 190 iterations, f32, one replicate), every run captured
+   by ``optimize_jit``; each must give a finite accuracy, a whole history
+   and the launch counts of SUITE_COUNTS (gram once an iteration in the 5
+   ascent variants, the eigensolver ``sym_eig`` 80 times an iteration in
+   opt_cmaes, no kernel in opt_direct); each accuracy is printed beside the
+   reference's median (not a check).  gram is held against its plain
+   version on limbo_def's final GP, and ``sym_eig`` against its plain
+   version on a CMA-ES covariance of the card (timed against it and
+   against ``torch.linalg.eigh``).  (b) ``regression_suite.
+   run_regression_suite`` on RobotArm d8 at n = 600 (capacity 768), both
+   models, one replicate and one oracle replicate, precise: finite MSEs
+   printed beside the reference's medians and the oracle's, gram_train
+   launched (the f32 multi-start) and held against its plain version on
+   the run's inputs.
+10. Prints a JSON line of each path's numbers, a JSON line of per-kernel
    numbers, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -128,6 +145,26 @@ PANEL_PIVOTS = (0, 31, 32, 40, 127)   # failed pivots the panel check tries
 # alternated groups; optimize_jit's runs (a), (c) and the frozen (f)
 GRAPH_ITERS, GRAPH_RATE_GROUPS, GRAPH_RATE_ITERS = 40, 4, 10
 JIT_A_ITERS, JIT_C_ITERS, JIT_F_ITERS = 30, 40, 8
+# the suite path: the BO suite's protocol (10 init points, 190 iterations,
+# f32) for each of its 7 variants on Hartmann6 (d = 6, the suite's widest),
+# one replicate each; then the regression suite at its widest, RobotArm d8
+# at n = 600 (capacity 768), both models, one replicate and one oracle
+# replicate, f32 data with precise=True
+SUITE_INIT, SUITE_ITERS, SUITE_CMA_GENS = 10, 190, 80
+REG_N, REG_CAPACITY = 600, 768
+# the launches of one 190-iteration run of each variant: the sweep's gram
+# (1024 x 256 = 512^2) once an iteration where the ascent maximizes (the
+# ascent's 64 x 256 and the hp-opt at capacity 256 stay under the kernels'
+# size rule); CMA-ES's eigendecomposition once a generation; DIRECT none
+SUITE_COUNTS = {
+    "limbo_def": {"gram": SUITE_ITERS},
+    "limbo_def_hpopt": {"gram": SUITE_ITERS},
+    "opt_cmaes": {"sym_eig": SUITE_ITERS * SUITE_CMA_GENS},
+    "opt_direct": {},
+    "acq_ei": {"gram": SUITE_ITERS},
+    "acq_ucb": {"gram": SUITE_ITERS},
+    "acq_wide": {"gram": SUITE_ITERS},
+}
 
 
 def log(msg: str) -> None:
@@ -1586,6 +1623,208 @@ def jit_path(dev, gen):
     return out, counts
 
 
+def sym_eig_entry(C) -> dict:
+    """The eigensolver kernel against its plain version (the same Jacobi
+    rotations in PyTorch operations) on a CMA-ES covariance of the path:
+    eigenvalues within 1e-5 max|w|, the reconstruction V diag(w) V^T
+    within 1e-5 max|C|, and each eigenvector whose eigenvalue is at least
+    1e-2 max|w| from its neighbours within 2e-3 (an f32 rounding of C moves
+    it by ~1e-7 / 1e-2); timed against it and against torch.linalg.eigh
+    (which waits on the host, so CUDA events, not a graph)."""
+    from limbo_tpu_torch.ops.sym_eig import SWEEPS, sym_eig, sym_eig_plain
+
+    B, d = C.shape[0], C.shape[-1]
+    w, V = sym_eig(C)
+    wp, Vp = sym_eig_plain(C)
+    scale = float(wp.abs().max())
+    log(f"sym_eig on a CMA-ES covariance ({B} x {d} x {d}, f32), "
+        f"eigenvalues {[round(float(x), 6) for x in wp[0]]}:")
+    err = check_close("sym_eig eigenvalues", w, wp, 1e-5 * scale,
+                      "1e-5 max|w|")
+    rec = V @ torch.diag_embed(w) @ V.transpose(-1, -2)
+    check_close("sym_eig V diag(w) V^T", rec, C, 1e-5 * float(C.abs().max()),
+                "1e-5 max|C|")
+    gap = torch.diff(wp, dim=-1)
+    edge = torch.full_like(gap[..., :1], math.inf)
+    sep = torch.minimum(torch.cat([edge, gap], -1), torch.cat([gap, edge], -1))
+    cols = sep >= 1e-2 * scale                                # (B, d)
+    dv = torch.where(cols[:, None, :], (V - Vp).abs(), 0.0)
+    if not bool((dv <= 2e-3).all()):
+        raise AssertionError(f"sym_eig eigenvectors: max |err| "
+                             f"{float(dv.max()):.3e} over 2e-3")
+    err = max(err, float(dv.max()))
+    log(f"  sym_eig eigenvectors ({int(cols.sum())} of {B * d} separated): "
+        f"max |err| {float(dv.max()):.3e}, tolerance 2e-3: ok")
+    ms = cuda_ms(lambda: sym_eig(C))
+    plain = cuda_ms(lambda: sym_eig_plain(C), reps=2)
+    lib = event_ms(lambda: torch.linalg.eigh(C), reps=20)
+    # the work of the fixed sweeps: per rotation ~24 operations for
+    # (t, c, s) and the diagonal, 6 for each of the d - 2 other rows and
+    # 6 for each of the d eigenvector rows
+    ops = B * SWEEPS * d * (d - 1) / 2 * (24 + 6 * (d - 2) + 6 * d)
+    bnd = bound_ms(C.numel() * 4 + (w.numel() + V.numel()) * 4, ops)
+    log(f"  sym_eig: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"torch.linalg.eigh {lib:.4f} ms (with its host check), bound "
+        f"{bnd[0]:.2e} ms ({bnd[1]}; latency-bound)")
+    return dict(route="cuda", source="limbo_tpu_torch/csrc/sym_eig.cu",
+                replaces="limbo_tpu/opt/cmaes.py:93 (jnp.linalg.eigh, no "
+                "Pallas kernel)", max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib)
+
+
+def _ref_median(path: str) -> float:
+    import numpy as np
+
+    return float(np.median(np.loadtxt(path, ndmin=2)[:, 0]))
+
+
+def suite_path(dev, gen):
+    """The benchmark suites through their entry points.  (a) bo_suite.
+    run_suite runs each of the 7 default_variants() on Hartmann6 (10 init
+    points, 190 iterations, f32, one replicate, every run through
+    optimize_jit, so captured), with the launch counts set to 0 just before
+    each variant and read just after: each must equal SUITE_COUNTS, the
+    accuracy must be finite and the history (check_history) whole; each
+    accuracy is printed beside the reference's median
+    (benchmark_results/summary.json, not a check).  The gram kernel is then
+    held against its plain version on limbo_def's final GP, and the
+    eigensolver on a CMA-ES covariance of the card.  (b) regression_suite.
+    run_regression_suite on RobotArm d8 at n = 600, both models, one
+    replicate and one oracle replicate, precise: finite MSEs, the launches
+    of gram and gram_train recorded (gram_train at least once: the f32
+    multi-start at capacity 768), each MSE beside the reference's median
+    and the oracle's; gram_train is held against its plain version on the
+    run's inputs at capacity 768."""
+    import dataclasses
+    import tempfile
+
+    from limbo_tpu_torch.benchmarks import bo_suite
+    from limbo_tpu_torch.benchmarks import regression_suite as rs
+    from limbo_tpu_torch.benchmarks.functions import HARTMANN6
+    from limbo_tpu_torch.benchmarks.regression_functions import ROBOT_ARM
+    from limbo_tpu_torch.kernels import SquaredExpARD
+    from limbo_tpu_torch.kernels.base import effective_jitter
+    from limbo_tpu_torch.ops import _cuda, gram_pallas as gp_ops
+    from limbo_tpu_torch.opt import Cmaes
+
+    with open("benchmark_results/summary.json") as fh:
+        ref = json.load(fh)
+    out, counts, runs = {"bo": {}, "regression": {}}, {}, []
+    make = bo_suite.make_optimizer
+
+    def keep(*args, **kwargs):
+        """make_optimizer, its optimize_jit's (state, history) kept."""
+        bo = make(*args, **kwargs)
+        jit = bo.optimize_jit
+
+        def recorded(*a, **k):
+            runs.append(jit(*a, **k))
+            return runs[-1]
+        bo.optimize_jit = recorded
+        return bo
+
+    bo_suite.make_optimizer = keep
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for v in bo_suite.default_variants():
+                torch.cuda.synchronize()
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                row = bo_suite.run_suite(
+                    [v], [HARTMANN6], nb_reps=1, n_init=SUITE_INIT,
+                    n_iters=SUITE_ITERS, out_dir=tmp, verbose=False,
+                    device=dev)[f"{v.name}/Hartmann6"]
+                t = time.perf_counter() - t0
+                launches = dict(_cuda.LAUNCHES)
+                where = f"suite path ({v.name})"
+                state, hist = runs[-1]
+                if not math.isfinite(row["accuracy"]):
+                    raise AssertionError(f"{where}: accuracy "
+                                         f"{row['accuracy']}")
+                check_history(where, state, hist, SUITE_ITERS, SUITE_ITERS)
+                want = SUITE_COUNTS[v.name]
+                check_counts(where, launches, {
+                    k: (want.get(k, 0), want.get(k, 0)) for k in launches})
+                r = ref.get(f"{v.name}/Hartmann6", {}).get("accuracy")
+                log(f"{where}: accuracy {row['accuracy']:.6f} (the "
+                    f"reference's median over 10: {r}); {row['time_ms']:.1f}"
+                    f" ms, of it warm-up and capture {row['compile_ms']:.1f}"
+                    f" ms; launches {launches}: as expected")
+                out["bo"][v.name] = dict(
+                    accuracy=row["accuracy"], ref_median=r,
+                    time_ms=row["time_ms"], capture_ms=row["compile_ms"],
+                    seconds=t)
+                counts[f"suite_{v.name}"] = launches
+                if v.name == "limbo_def":
+                    final_gp = state.gp
+            del state, hist
+            runs.clear()
+            with uncounted():
+                out["bo"]["gram_err"] = bo_kernel_checks(
+                    "suite path (limbo_def)", final_gp, None, gen, dev)
+                # a covariance of CMA-ES on the card: the suite's
+                # generation (16 of Hartmann6's 6 dims), 10 generations in
+                cm = Cmaes(iterations=SUITE_CMA_GENS, pop_size=16)
+                f = HARTMANN6.make(dev, torch.float32)
+                st = cm.init_state(torch.full((6,), 0.5, device=dev), 1)
+                z = torch.randn((10, 1, 16, 6), generator=gen, device=dev)
+                for zt in z:
+                    st = cm.generation(lambda X: -f(X), st, zt)
+                sym = sym_eig_entry(st.C)
+
+            fn = dataclasses.replace(ROBOT_ARM, dims=(8,))
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            summ = rs.run_regression_suite(
+                functions=[fn], points=(REG_N,), nb_reps=1, oracle_reps=1,
+                out_dir=tmp, dtype=torch.float32, verbose=False,
+                precise=True, device=dev)
+            t = time.perf_counter() - t0
+            launches = dict(_cuda.LAUNCHES)
+    finally:
+        bo_suite.make_optimizer = make
+    check_counts("suite path (regression)", launches,
+                 {"gram_train": (1, None)})
+    counts["suite_regression"] = launches
+    for spec in rs.DEFAULT_MODELS:
+        tag = f"RobotArm_d8_n{REG_N}_{spec.name}"
+        row = summ[tag]
+        if not (math.isfinite(row["mse"])
+                and math.isfinite(row["oracle_mse"])):
+            raise AssertionError(f"suite path ({tag}): mse {row['mse']}, "
+                                 f"oracle {row['oracle_mse']}")
+        r = _ref_median(f"regression_results/{tag}.dat")
+        log(f"suite path ({tag}): mse {row['mse']:.6g} (the reference's "
+            f"median over 10: {r}; the oracle's {row['oracle_mse']:.6g}); "
+            f"learn {row['learn_ms']:.1f} ms, query {row['query_ms']:.2f} "
+            f"ms, oracle learn {row['oracle_learn_ms']:.1f} ms")
+        out["regression"][spec.name] = dict(
+            mse=row["mse"], ref_median=r, oracle_mse=row["oracle_mse"],
+            learn_ms=row["learn_ms"], query_ms=row["query_ms"],
+            oracle_learn_ms=row["oracle_learn_ms"])
+    log(f"suite path (regression): {t:.1f} s in all; launches {launches}")
+    out["regression"]["seconds"] = t
+    # gram_train on the run's inputs (replicate 0's draws) at capacity 768
+    with uncounted():
+        make_data = rs._make_runner(fn, 8, REG_N, rs.DEFAULT_MODELS[0],
+                                    device=dev)[0]
+        U = make_data(torch.Generator(device=dev).manual_seed(13))[0]
+        X = torch.zeros((REG_CAPACITY, 8), device=dev)
+        X[:REG_N] = U
+        k = SquaredExpARD.create(dim=8, noise=0.01, device=dev)
+        form, X2, sf2, inv_l = k._fused_train_args(X)
+        dadd = k.noise + effective_jitter(torch.float32) * torch.clamp(
+            sf2, min=1.0)
+        kk = gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, REG_N, form)
+        p = gp_ops.gram_train_plain(X2, sf2, inv_l, dadd, REG_N, form)
+        out["regression"]["gram_train_err"] = check_close(
+            f"gram_train {form} ({REG_CAPACITY}, n={REG_N}, the run's U)",
+            kk, p, 2e-6 + 2e-5 * p.abs(), "2e-6 + 2e-5|plain|")
+    torch.cuda.empty_cache()
+    return out, counts, sym
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1615,9 +1854,10 @@ def main() -> int:
     bo, bo_counts = bo_path(dev, gen)
     graph, graph_e, graph_c = graph_path(dev, args.seed)
     jit, jit_counts = jit_path(dev, gen)
+    suite, suite_counts, sym = suite_path(dev, gen)
     by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts,
                "graph_eager_n10k": graph_e, "graph_n10k": graph_c,
-               **jit_counts}
+               **jit_counts, **suite_counts}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
              "bytes_share", "launch_floor_ms", "turns", "blocked")
@@ -1637,6 +1877,12 @@ def main() -> int:
         row.update({x: e[x] for x in e if x in extra
                     or x.startswith(("at_", "fact", "promotion"))})
         kernels.append(row)
+    kernels.append(dict(
+        name="sym_eig", **{x: sym[x] for x in ("route", "source",
+                                               "replaces")},
+        launches=sum(c["sym_eig"] for c in by_path.values()),
+        **{x: sym[x] for x in keys + ("bound_by",)},
+        launches_by_path={p: c["sym_eig"] for p, c in by_path.items()}))
     print(json.dumps({"main_path": {
         "iters_per_s": res["iters_per_s"], "fit_s": res["fit_s"],
         "build_s": res["build_s"], "posterior_err": res["errs"],
@@ -1648,6 +1894,7 @@ def main() -> int:
     print(json.dumps({"bo_path": bo | {"card": card}}))
     print(json.dumps({"graph_path": graph | {"card": card}}))
     print(json.dumps({"jit_path": jit | {"card": card}}))
+    print(json.dumps({"suite_path": suite | {"card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

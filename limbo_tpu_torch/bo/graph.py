@@ -34,6 +34,10 @@ CUDA device records it once as a CUDA graph and replays it:
   launchers' shared-memory opt-in and tensor-map encoder lookup, the
   mirror's launch plan) outside the capture.  A capture that fails raises:
   the step never falls back to running eagerly on a card.
+* **Garbage.**  A step and its functions form a reference cycle, so an
+  earlier run's graphs may wait for the cyclic collector; the capture
+  collects first and holds the collector off while it runs, since a graph
+  destroyed during a capture invalidates it.
 * **Launch counts.**  ``ops/_cuda.LAUNCHES`` counts the wrappers' calls,
   and a replay calls none: each graph's counts are taken at its capture
   (and taken back out, since a capture launches nothing) and added at
@@ -46,6 +50,8 @@ the CPU.
 from __future__ import annotations
 
 import copy
+import gc
+import time
 from typing import Callable, Optional
 
 import torch
@@ -108,14 +114,19 @@ class Captured:
         self.fns, self.generator, self.device = fns, generator, device
         self.graphs = None          # key -> (CUDAGraph, launch counts)
         self.draws = None           # the _Draws of the captures
+        self.setup_s = 0.0          # the warm-up and capture, host clock
 
     def run(self, key) -> None:
         if self.device.type != "cuda":
             self.fns[key]()
             return
         if self.graphs is None:
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
             self._warm_up(key)
             self._capture()
+            torch.cuda.synchronize(self.device)
+            self.setup_s = time.perf_counter() - t0
             return
         graph, counts = self.graphs[key]
         self.draws.refill()
@@ -141,6 +152,21 @@ class Captured:
                             [torch.empty_like(r) for r in record.results])
 
     def _capture(self) -> None:
+        # A garbage cycle can hold an earlier run's graph (a step and the
+        # functions it captures refer to each other), and destroying a
+        # graph is not permitted while a capture is under way: collect
+        # before the capture, and let no collection run during it (one can
+        # start at any allocation of a Python object).
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            self._capture_all()
+        finally:
+            if enabled:
+                gc.enable()
+
+    def _capture_all(self) -> None:
         pool = torch.cuda.graph_pool_handle()
         graphs = {}
         for key, fn in self.fns.items():

@@ -17,7 +17,9 @@ hyperparameter re-optimization via hp_period, boptimizer.hpp:163).
 * The acquisition optimizer defaults to batched multi-start gradient ascent
   plus a dense random sweep (the acquisitions are differentiable through the
   GP query), replacing limbo's NLOpt DIRECT-L-RAND / CMA-ES default chain
-  (boptimizer.hpp:120-127).
+  (boptimizer.hpp:120-127); ``opt.DirectL`` and ``opt.Cmaes`` are the
+  batched counterparts of those two, and run inside optimize_jit's
+  captured iteration as well.
 * Every draw (init design, sweep, restarts, hyperparameter restarts, a
   stop criterion's search) comes from one ``torch.Generator`` on the
   optimizer's device, where the reference splits a key.
@@ -27,11 +29,13 @@ hyperparameter re-optimization via hp_period, boptimizer.hpp:163).
   with nothing read back from the card unless the run needs it (the
   exact append's finiteness flag, a stop criterion's decision).
 
-Not ported yet (ROADMAP.md queue 1): ``optimize_batch`` (needs
-acqui/qei.py, item 7), the model families "spgp" and "iterative" and
-``max_model_points`` with their ``model_options`` / ``model_refit_period``
-(item 6), and the "refined" and ``True`` cached-append modes and
-``cache_lite`` (item 4).  They raise ``NotImplementedError``.
+Not ported yet (ROADMAP.md queue 1): the "refined" and ``True``
+cached-append modes and ``cache_lite`` (item 4), the model families "spgp"
+and "iterative" and ``max_model_points`` with their ``model_options`` /
+``model_refit_period`` (item 6), and ``optimize_batch`` (needs
+acqui/qei.py, item 7).  They raise ``NotImplementedError``.  The
+multi-objective and constrained loops (bo/multi.py, bo/cbo.py, with
+opt/nsga2.py and opt/constrained.py) are items 7 and 8.
 """
 
 from __future__ import annotations
@@ -442,7 +446,9 @@ class BOptimizer:
         Returns (BOState, history): history holds ``samples`` (iters, d),
         ``observations`` (iters, p), ``best`` (iters,), the cummax of the
         aggregated observations from the init design's best on, and
-        ``effective_iterations``, all on the device, read by the caller.
+        ``effective_iterations``, all on the device, read by the caller,
+        and ``capture_s``, the host seconds of the first iteration's
+        warm-up and capture (0.0 on the CPU).
         """
         if self.model_type != "gp":
             raise NotImplementedError(
@@ -510,7 +516,8 @@ class BOptimizer:
         history = {"samples": xs, "observations": ys,
                    "best": torch.cummax(torch.maximum(aggs, best0),
                                         dim=0).values,
-                   "effective_iterations": torch.sum(torch.isfinite(aggs))}
+                   "effective_iterations": torch.sum(torch.isfinite(aggs)),
+                   "capture_s": step.graphs.setup_s}
         state = BOState(gp=step.gp, generator=gen, iteration=iters,
                         total_iterations=iters, aggregator=aggregator,
                         cache=step.cache)

@@ -93,7 +93,7 @@ class _HPOptMixin:
     loop (limbo_tpu/models/hp_opt.py:101-164)."""
 
     def _run(self, gp: gp_mod.GP, generator, make_objective,
-             init: torch.Tensor) -> OptResult:
+             init: torch.Tensor, pert=None) -> OptResult:
         dtype = init.dtype
         od = _dtype(self.objective_dtype)
         if od is not None:
@@ -113,7 +113,8 @@ class _HPOptMixin:
         return _multi_start(objective, init, self.optimizer, generator,
                             self.restarts, self.epsilon,
                             rank_objective=rank_objective,
-                            extra_inits=self._structured_inits(gp, init))
+                            extra_inits=self._structured_inits(gp, init),
+                            pert=pert)
 
     def _structured_inits(self, gp: gp_mod.GP, init: torch.Tensor):
         """Deterministic extra restart inits (strategy-specific)."""
@@ -197,7 +198,10 @@ class KernelLFOpt(_Strategy):
     def _structured_inits(self, gp, init):
         return _tiny_noise_init(gp, init)
 
-    def __call__(self, gp: gp_mod.GP, generator=None) -> gp_mod.GP:
+    def __call__(self, gp: gp_mod.GP, generator=None,
+                 pert=None) -> gp_mod.GP:
+        """pert: the (restarts, P) restart perturbations, drawn from
+        ``generator`` when None (a test hands in the reference's)."""
         def make_objective(od, ridge=True):
             kernel, mean, x, y = self._lifted(gp, od)
             ridge = self._obj_jitter(gp, od) if ridge else None
@@ -209,7 +213,8 @@ class KernelLFOpt(_Strategy):
 
             return objective
 
-        res = self._run(gp, generator, make_objective, gp.kernel.params)
+        res = self._run(gp, generator, make_objective, gp.kernel.params,
+                        pert=pert)
         return gp_mod.recompute(
             gp.replace(kernel=gp.kernel.with_params(res.x)))
 

@@ -42,10 +42,11 @@ SIGNATURES = {
     "panel_factor": {"panel_factor_launch": [_P, _I, _P, _P, _P]},
     "mirror_mm": {"mirror_mm_launch": [_P, _P, _I, _I, _I, _I, _I, _I,
                                         _P, _P, _P, _P]},
+    "sym_eig": {"sym_eig_launch": [_P, _I, _I, _I, _I, _P, _P, _P]},
 }
 
 LAUNCHES = {"gram": 0, "gram_train": 0, "trimv": 0, "tri_inv_panel": 0,
-            "panel_factor": 0, "mirror_mm": 0}
+            "panel_factor": 0, "mirror_mm": 0, "sym_eig": 0}
 
 _LIBS: dict = {}
 

@@ -2,7 +2,7 @@
 """How far the cached posterior variance is from the exact one at bench.py's
 size, in the JAX package and in the PyTorch port, on the same data.
 
-    JAX_PLATFORMS=cpu python3 scripts/torch_variance_gap_10k.py [--queries 64]
+    JAX_PLATFORMS=cpu python3 scripts/compare_variance_gap_10k.py [--queries 64]
 
 bench.py's workload: n = 10,000, d = 8, its data (jax.random.PRNGKey(0):
 X uniform, y = sin(3 sum x) + 0.1 e), SquaredExpARD (l = 1, sigma^2 = 1,

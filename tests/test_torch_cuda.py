@@ -533,3 +533,147 @@ def test_optimize_jit_on_the_card(dev):
     assert bool(torch.isfinite(hist["samples"]).all())
     assert bool(torch.isfinite(st.gp.L).all())
     assert st.best_value == float(hist["best"][-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("d,b", [(1, 1), (2, 64), (3, 7), (4, 1), (5, 64),
+                                 (6, 7), (7, 1), (8, 64), (32, 3)])
+def test_sym_eig_kernel_ragged(dev, dtype, d, b):
+    """The eigensolver kernel against its plain version and numpy's LAPACK
+    eigh on ragged d and batch sizes: eigenvalues and B D B^T (f32 to 1e-5
+    and f64 to 1e-12 of the matrix's scale, times d for d = 32)."""
+    from limbo_tpu_torch.ops.sym_eig import sym_eig, sym_eig_plain
+
+    M = np.random.default_rng(d * 100 + b).standard_normal((b, d, d))
+    A = M + M.transpose(0, 2, 1)
+    At = torch.tensor(A, dtype=dtype, device=dev)
+    before = _cuda.LAUNCHES["sym_eig"]
+    w, V = sym_eig(At)
+    assert _cuda.LAUNCHES["sym_eig"] == before + 1
+    wp, Vp = sym_eig_plain(At)
+    tol = (1e-5 if dtype == torch.float32 else 1e-12) * np.abs(A).max() \
+        * max(1, d // 8)
+    rec = (V @ torch.diag_embed(w) @ V.transpose(-1, -2)).double().cpu()
+    np.testing.assert_allclose(w.double().cpu().numpy(),
+                               wp.double().cpu().numpy(), atol=tol, rtol=0)
+    np.testing.assert_allclose(w.double().cpu().numpy(),
+                               np.linalg.eigvalsh(A), atol=tol, rtol=0)
+    np.testing.assert_allclose(rec.numpy(), A, atol=tol, rtol=0)
+    eye = np.broadcast_to(np.eye(d), (b, d, d))
+    np.testing.assert_allclose(
+        (V.transpose(-1, -2) @ V).double().cpu().numpy(), eye,
+        atol=tol / np.abs(A).max(), rtol=0)
+
+
+def test_sym_eig_refuses_what_the_kernel_does_not_take(dev):
+    from limbo_tpu_torch.ops.sym_eig import sym_eig
+
+    with pytest.raises(ValueError, match="1 <= d <= 32"):
+        sym_eig(torch.eye(33, device=dev))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        sym_eig(torch.eye(3, device=dev, dtype=torch.float16))
+
+
+def _small_gp(dev):
+    from limbo_tpu_torch.kernels import MaternFiveHalves
+    from limbo_tpu_torch.means import DataMean
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    X = torch.rand((20, 6), generator=g, device=dev)
+    return gp_mod.fit(MaternFiveHalves.create(noise=1e-10, device=dev),
+                      DataMean.create(device=dev), X,
+                      _tbowl(X)[:, None], capacity=256, device=dev)
+
+
+def _tbowl(X):
+    """_bowl as torch code on the device, over the last axis."""
+    return -torch.sum((X - 0.3) ** 2, dim=-1)
+
+
+@pytest.mark.parametrize("name", ["cmaes", "direct"])
+def test_cmaes_direct_captured_equal_eager_bit_for_bit(dev, name):
+    """CMA-ES (restarts 2, with its eigensolver kernel) and DIRECT-L as the
+    acquisition optimizer of a captured BO iteration: four iterations by
+    replay give the eager run's bits (proposals and GP), the warm-up under
+    set_sync_debug_mode("error") stays silent, and eagerly both optimizers
+    run under it too."""
+    from limbo_tpu_torch.acqui import UCB
+    from limbo_tpu_torch.bo.graph import BOStep
+    from limbo_tpu_torch.opt import Cmaes, DirectL
+
+    opt = (Cmaes(iterations=6, pop_size=8, restarts=2) if name == "cmaes"
+           else DirectL(rounds=5, splits_per_round=4))
+
+    def propose_with(gen):
+        def propose(model, it):
+            start = torch.full((6,), 0.5, device=dev)
+            return opt(lambda Z: UCB(0.125)(model, Z), start, gen, True).x
+        return propose
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gp = _small_gp(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        propose_with(gen)(gp, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps, rows = [], []
+    for eager in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(8)
+        xs = torch.zeros((4, 6), device=dev)
+        step = BOStep(_small_gp(dev), None, propose_with(gen),
+                      lambda x: _tbowl(x).reshape(1), gen,
+                      on_sample=lambda it, x, y, xs=xs: xs.index_copy_(
+                          0, it.reshape(1), x[None, :]))
+        before = _cuda.LAUNCHES["sym_eig"]
+        for _ in range(4):
+            step.step(eager=eager)
+        launched = _cuda.LAUNCHES["sym_eig"] - before
+        assert launched == (4 * 6 if name == "cmaes" else 0)
+        steps.append(step)
+        rows.append(xs)
+    assert steps[0].graphs.graphs is not None
+    assert torch.equal(_bits(rows[0]), _bits(rows[1]))
+    for field in ("x", "y", "L", "alpha", "n_dev"):
+        assert torch.equal(_bits(getattr(steps[0].gp, field)),
+                           _bits(getattr(steps[1].gp, field))), field
+    assert steps[0].gp.n == 24 and bool(torch.isfinite(rows[0]).all())
+
+
+def test_capture_survives_a_garbage_graph(dev):
+    """An earlier step, captured and dropped, waits in a reference cycle
+    for the cyclic collector; a later capture whose step allocates many
+    Python objects (so that a collection would start during it) must not
+    destroy that graph mid-capture: the later run replays, and the
+    collector is on again afterwards."""
+    import gc
+
+    from limbo_tpu_torch.bo.graph import BOStep
+
+    def objective(x):
+        junk = [[i] for i in range(200000)]      # Python allocations
+        del junk
+        return _tbowl(x).reshape(1)
+
+    def propose_with(gen):
+        from limbo_tpu_torch.acqui import UCB
+        from limbo_tpu_torch.opt import RandomRestarts, Rprop
+
+        opt = RandomRestarts(sub=Rprop(iterations=2), repeats=8,
+                             sweep_samples=16)
+        return lambda model, it: opt(lambda Z: UCB()(model, Z),
+                                     torch.full((6,), 0.5, device=dev),
+                                     gen, True).x
+
+    gc.collect()
+    for seed in range(3):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        step = BOStep(_small_gp(dev), None, propose_with(gen), objective,
+                      gen)
+        for _ in range(3):
+            step.step()
+        assert step.graphs.graphs is not None and step.gp.n == 23
+        del step                          # its graph now waits in a cycle
+    assert gc.isenabled()
