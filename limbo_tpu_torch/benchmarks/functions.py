@@ -49,7 +49,7 @@ class TestFunction:
         return abs(best_observed - self.f_opt)
 
     def as_max_objective(self, device="cuda", dtype=torch.float32):
-        """(d,) -> (1,) maximization wrapper for the BO drivers, its tables
+        """(d,) -> (1,) maximization wrapper for the BO loops, its tables
         built once on `device`."""
         f = self.make(torch.device(device), dtype)
         return lambda x: -f(x).reshape(1)

@@ -273,7 +273,7 @@ def test_plots_read_dat_trees(tmp_path):
 
 
 def test_suite_scripts_import_no_jax():
-    """The card drivers stand alone, as the package does
+    """The suite scripts stand alone, as the package does
     (tests/test_torch_rules.py)."""
     import ast
     from pathlib import Path
