@@ -95,7 +95,35 @@ Run from the repository root on a machine with one NVIDIA H100:
    printed beside the reference's medians and the oracle's, gram_train
    launched (the f32 multi-start) and held against its plain version on
    the run's inputs.
-10. Prints a JSON line of each path's numbers, a JSON line of per-kernel
+10. lite path (``lite_path``): scripts/large_n_bench.py --lite 32768,
+   not cut: n = 32,768, d = 8, capacity 33,280, the lite cache (Linv, a
+   bf16 mirror built from it panel by panel, defer_m = 256, no f32 K^-1),
+   6 BO iterations with deferred appends, then one append and a forced
+   flush, replayed on a clone inside BOStep's flush graph (the same bits).
+   It holds the peak memory of the build and of the flush (less than one
+   f32 N x N above what stays resident), the launch counts (260 panels, 1
+   tri-inv, 1 gram_train, 22 gram and 22 mirror an iteration, 2 trimv an
+   append), the posterior against f64 after the iterations and after the
+   flush (check_posterior_exact), the mirror after the flush against f64
+   Linv^T Linv on row panels (with the pre-flush mirror as a control that
+   must fail), and then each kernel against its plain version at
+   N = 33,280, where it times each (``at_N33280`` in the kernels line).
+11. modes path (``modes_path``): update_mode_bench.py's n = 10k with the
+   "refined" (K kept) and True appends, 40 each on the same proposals; the
+   launch counts, and 10 refined iterations captured against eager, bit
+   for bit; the posteriors, pivots and K^-1 drift are printed, not held
+   (at this conditioning the matvec pivots lose the f32 posterior in the
+   reference too).
+12. models path (``models_path``): the iterative (CG) GP at n = 32,768
+   (its mean against the exact f64 posterior through the identity
+   mu - mu_exact = (K^-1 k)^T r, the CG iterations and residuals), and
+   through BOptimizer at 4096 init points; SPGP at m = 3277 (the NLML,
+   its gradient and the query against f64) and through BOptimizer at
+   m = 16; BOptimizer(max_model_points=200); MultiGP with 2 outputs at
+   n = 4096 (bit for bit against independent fits) and ParallelLFOpt.
+   Each kernel the subpaths launched is held against its plain version at
+   their shapes.
+13. Prints a JSON line of each path's numbers, a JSON line of per-kernel
    numbers, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -152,6 +180,17 @@ JIT_A_ITERS, JIT_C_ITERS, JIT_F_ITERS = 30, 40, 8
 # replicate, f32 data with precise=True
 SUITE_INIT, SUITE_ITERS, SUITE_CMA_GENS = 10, 190, 80
 REG_N, REG_CAPACITY = 600, 768
+# slice 9.  The lite path: scripts/large_n_bench.py --lite 32768, not cut
+# (n = 32,768, capacity 33,280, the hp path's kernel and data model, the
+# lite cache with defer_m = 256), 6 iterations and one forced flush.  The
+# modes path: update_mode_bench.py's n = 10k, 40 refined iterations and
+# their proposals appended in True mode, 10 refined iterations captured.
+# The models path: BOptimizer over the CG GP (b, cut from 10 iterations to
+# 2: an iteration takes ~13 s, each acquisition step two CG solves of up to
+# 256 iterations), over SPGP at m = 16 (d) and capped at 200 points (e).
+LITE_N, LITE_CAPACITY, LITE_ITERS, LITE_DEFER_M = 32_768, 33_280, 6, 256
+MODES_ITERS, MODES_GRAPH_ITERS = 40, 10
+MODELS_B_ITERS, MODELS_D_ITERS, MODELS_E_ITERS = 2, 30, 30
 # the launches of one 190-iteration run of each variant: the sweep's gram
 # (1024 x 256 = 512^2) once an iteration where the ascent maximizes (the
 # ascent's 64 x 256 and the hp-opt at capacity 256 stay under the kernels'
@@ -585,21 +624,27 @@ def posterior_f64(gp, Xq, rel: float = 0.0, dist: bool = False):
         + 32 * 2.0 ** -23 * torch.clamp(sf2, min=1.0)
 
     def sq(A, B, sym):
-        d2 = torch.cdist(A, B,
-                         compute_mode="donot_use_mm_for_euclid_dist") ** 2
+        # in place where a temporary would be N x N (the same operations
+        # in the same order): at n = 32k each f64 N x N is 8.6 GB
+        d2 = torch.cdist(A, B, compute_mode="donot_use_mm_for_euclid_dist")
+        d2.mul_(d2)
         if not (rel and dist):
             return d2
         e = e_of(d2.shape, d2.device)
         if sym:
-            e = (e + e.T) / 2
+            e = e + e.T
+            e.div_(2)
         terms = (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :]
-        return torch.clamp(d2 + rel * e * terms, min=0.0)
+        d2.add_(e.mul_(rel).mul_(terms))
+        del e, terms
+        return d2.clamp_(min=0.0)
 
     if isinstance(k, SquaredExpARD) and k.A.shape[1] == 0:
         inv_ell = 1.0 / r(torch.exp(k.log_ell.double()))
 
         def cov(A, B, sym=False):
-            return sf2 * torch.exp(-0.5 * sq(A * inv_ell, B * inv_ell, sym))
+            return sq(A * inv_ell, B * inv_ell, sym).mul_(-0.5).exp_() \
+                .mul_(sf2)
     elif isinstance(k, MaternFiveHalves):
         ell = r(torch.exp(k.log_l.double()))
 
@@ -654,6 +699,7 @@ class MainPath:
                                   repeats=RESTARTS, sweep_samples=SWEEP)
         self.acq = UCB(alpha=0.5)
         self.start = torch.full((d,), 0.5, device=dev)
+        self.fast_update = "deferred"
 
     def fit(self):
         return self.gp_mod.fit(self.kernel, self.mean, self.X, self.Y,
@@ -678,7 +724,7 @@ class MainPath:
 
     def append(self, gp, cache, x):
         return self.gp_mod.add_sample_cached(gp, cache, x, self.objective(x),
-                                             fast_update="deferred")
+                                             fast_update=self.fast_update)
 
     def iterate(self, gp, cache, gen=None):
         return self.append(gp, cache, self.acquire(gp, cache, gen))
@@ -1235,11 +1281,22 @@ def bo_kernel_checks(where: str, gp, cache, gen, dev) -> float:
     return err
 
 
-def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM):
+def model_fields(model) -> dict:
+    """The tensors of a model of any family that must stay finite."""
+    if hasattr(model, "gps"):
+        return {f"{k}{j}": getattr(g, k) for j, g in enumerate(model.gps)
+                for k in ("L", "alpha")}
+    return {k: getattr(model, k) for k in ("L", "alpha", "xb")
+            if getattr(model, k, None) is not None}
+
+
+def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM,
+           n_final=None):
     """One BOptimizer.optimize run on the card with the launch counts set to
     0 just before it and read just after; checks the run's result (best
-    value, samples in the box, finite GP).  Returns the state, the launch
-    counts and the timings."""
+    value, samples in the box, finite model; ``n_final`` samples in the
+    model, default init + iters).  Returns the state, the launch counts
+    and the timings."""
     from limbo_tpu_torch.ops import _cuda
 
     f = _Recorded(hartmann6)
@@ -1261,15 +1318,23 @@ def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM):
         f"{state.best_value:.6f} (the optimum 3.32237)")
     log(f"  launches: {launches}; per iteration: "
         f"{ {k: round(v, 3) for k, v in per.items()} }")
-    if state.iteration != iters or n != bo.init.count + iters:
+    if n_final is None:
+        n_final = bo.init.count + iters
+    if state.iteration != iters or n != n_final:
         raise AssertionError(f"bo path ({name}): {state.iteration} "
                              f"iterations, {n} samples")
-    if len(f.ys) != n:
+    if len(f.ys) != bo.init.count + iters:
         raise AssertionError(f"bo path ({name}): {len(f.ys)} evaluations "
                              f"for {n} samples")
     # the GP stores observations in f32: the best of the f32 roundings is
     # the rounding of the best
     best = float(torch.tensor(max(f.ys), dtype=torch.float32))
+    if n != len(f.ys):
+        # a sparsified model keeps a subset: its best is the best it kept
+        kept = [y for x, y in zip(f.xs, f.ys)
+                if bool((torch.from_numpy(x).to(state.gp.x)[None, :]
+                         == state.gp.x[:n]).all(dim=1).any())]
+        best = float(torch.tensor(max(kept), dtype=torch.float32))
     if state.best_value != best:
         raise AssertionError(f"bo path ({name}): best_value "
                              f"{state.best_value} != max(observed) {best}")
@@ -1277,9 +1342,9 @@ def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM):
     if not (bool(((X >= 0) & (X <= 1)).all())
             and bool(((state.gp.x[:n] >= 0) & (state.gp.x[:n] <= 1)).all())):
         raise AssertionError(f"bo path ({name}): a sample outside [0, 1]^6")
-    check_finite(f"bo path ({name})", L=state.gp.L, alpha=state.gp.alpha)
-    log(f"  best_value == max(observed), {n} samples in [0, 1]^{dim}, GP "
-        f"finite: ok")
+    check_finite(f"bo path ({name})", **model_fields(state.gp))
+    log(f"  best_value == max(observed), {n} samples in [0, 1]^{dim}, "
+        f"model finite: ok")
     return state, launches, dict(setup_s=setup, loop_s=loop,
                                  iters_per_s=iters / loop, iters=iters,
                                  best=state.best_value,
@@ -1369,16 +1434,19 @@ def hartmann6_device(dev):
 
 
 def clone_state(gp, cache):
-    """A copy of a fitted GP and its cache with storage of its own."""
+    """A copy of a fitted GP and its cache with storage of its own (the
+    cache's absent fields stay None)."""
     import copy
 
     gp2 = gp.replace(kernel=copy.deepcopy(gp.kernel),
                      mean=copy.deepcopy(gp.mean), **{
                          k: getattr(gp, k).clone()
                          for k in ("x", "y", "L", "alpha", "n_dev")})
+    from limbo_tpu_torch.bo.graph import _CACHE_FIELDS
+
     cache2 = cache.replace(**{
-        k: getattr(cache, k).clone() for k in (
-            "Kinv", "Linv", "Kinv_q", "P", "ay", "u_ones", "base_n_dev")})
+        k: getattr(cache, k).clone() for k in _CACHE_FIELDS
+        if getattr(cache, k) is not None})
     return gp2, cache2
 
 
@@ -1825,6 +1893,860 @@ def suite_path(dev, gen):
     return out, counts, sym
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the lite cache at n = 32k, the immediate append modes, the other
+# model families
+# ---------------------------------------------------------------------------
+
+def f32_panel(A, r0, r1, chunk: int = 2048):
+    """Rows r0:r1 of A^T A for a lower-triangular A (N, N), in f64, and of
+    |A|^T |A|, summed over row chunks of A (no f64 N x N copy)."""
+    N = A.shape[0]
+    acc = torch.zeros((r1 - r0, N), dtype=torch.float64, device=A.device)
+    acc_abs = torch.zeros_like(acc)
+    for k0 in range(r0, N, chunk):
+        blk = A[k0:k0 + chunk].double()
+        cols = blk[:, r0:r1]
+        acc += cols.T @ blk
+        acc_abs += cols.abs().T @ blk.abs()
+    return acc, acc_abs
+
+
+def check_mirror_panels(where, mirror, Linv, rows, control=None) -> float:
+    """Row panels of a bf16 mirror against (Linv^T Linv) in f64: within one
+    bf16 rounding (2^-8 relative: 8 significant bits) of the f32 panel
+    product, whose own rounding is bounded by sqrt(N) 2^-24
+    (|Linv|^T |Linv|).  ``control``:
+    rows of an earlier mirror that must miss the same limit somewhere."""
+    N = Linv.shape[0]
+    err, missed = 0.0, 0
+    for r0, r1 in rows:
+        exact, absp = f32_panel(Linv, r0, r1)
+        delta = N ** 0.5 * F32_U * absp
+        tol = 2.0 ** -8 * (exact.abs() + delta) + delta
+        err = max(err, check_close(
+            f"{where}: mirror rows {r0}:{r1} vs f64 Linv^T Linv",
+            mirror[r0:r1], exact, tol,
+            "2^-8 (|exact| + d) + d, d = sqrt(N) 2^-24 |Linv|^T|Linv|"))
+        if control is not None:
+            missed += int((~((control[(r0, r1)].double() - exact).abs()
+                             <= tol)).sum())
+        del exact, absp, delta, tol
+    if control is not None:
+        log(f"  control: the mirror before the flush misses that limit in "
+            f"{missed} entries")
+        if not missed:
+            raise AssertionError(f"{where}: the pre-flush mirror passes the "
+                                 "post-flush mirror check")
+    return err
+
+
+def kernel_rows_at(where, gp, cache, gen, dev) -> dict:
+    """Each kernel of the lite path held against its plain version on the
+    run's own state at N = LITE_CAPACITY (bo_kernel_checks, then the panel
+    factor on the first block of the training covariance and the mirror
+    product on the run's bf16 mirror), then timed there: CUDA-graph replay
+    (fewer calls for the N x N outputs), and the factorization, the
+    blocked inverse and the mirror build with CUDA events.  Returns
+    per-kernel rows for the kernels JSON line."""
+    from limbo_tpu_torch.kernels.base import effective_jitter
+    from limbo_tpu_torch.models import gp as gp_mod
+    from limbo_tpu_torch.ops import chol, gram_pallas as gp_ops, mirror
+    from limbo_tpu_torch.ops import trimv as tv
+
+    err = bo_kernel_checks(where, gp, cache, gen, dev)
+    k = gp.kernel
+    N, n, d = gp.capacity, gp.n, gp.x.shape[1]
+    form, X2, sf2, inv_l = k._fused_train_args(gp.x)
+    dadd = k.noise + effective_jitter(torch.float32) * torch.clamp(sf2,
+                                                                   min=1.0)
+    B = chol.PANEL_BLOCK
+    D = gp_ops.gram_train_pallas(X2[:B].contiguous(), sf2, inv_l, dadd, B,
+                                 form)
+    Lk, Vk = chol._panel_factor_pallas(D)
+    Lp, Vp = chol.panel_factor_plain(D)
+    err_pf = max(check_close("panel L11 (first block)", Lk, Lp,
+                             1e-4 * float(Lp.abs().max()), "1e-4 max|plain|"),
+                 check_close("panel L11^-T (first block)", Vk, Vp,
+                             1e-4 * float(Vp.abs().max()), "1e-4 max|plain|"))
+    Kq = cache.Kinv_q
+    err_m = 0.0
+    rows = {}
+    for q in (RESTARTS, SWEEP):
+        Xq = torch.rand((q, d), generator=gen, device=dev)
+        ks = k.gram(Xq, gp.x) * gp.mask[None, :]
+        t = mirror.mirror_mm(ks, Kq)
+        kb = ks.to(torch.bfloat16).double()
+        t64 = torch.zeros((q, N), dtype=torch.float64, device=dev)
+        scale = torch.zeros_like(t64)
+        for c0 in range(0, N, 4096):
+            K64 = Kq[c0:c0 + 4096].double()
+            t64 += kb[:, c0:c0 + 4096] @ K64
+            scale += kb[:, c0:c0 + 4096].abs() @ K64.abs()
+        del K64
+        err_m = max(err_m, check_close(
+            f"mirror product ({q}x{N}) vs the f64 product of its operands",
+            t, t64, N ** 0.5 * F32_U * scale,
+            "sqrt(N) 2^-24 (|ks| @ |Kinv_q|)"))
+        del t64, scale, t
+        X1 = k._fused_train_args(Xq)[1]
+        rows[q] = dict(
+            gram=cuda_ms(lambda: gp_ops.gram_pallas(X1, X2, sf2, inv_l,
+                                                    form)),
+            gram_plain=cuda_ms(lambda: gp_ops.gram_plain(
+                X1, X2, sf2, inv_l, form), reps=5),
+            mirror=cuda_ms(lambda: mirror.mirror_mm(ks, Kq), reps=5),
+            mirror_plain=cuda_ms(lambda: mirror.mirror_mm_plain(ks, Kq),
+                                 reps=2),
+            mirror_lib=cuda_ms(lambda: torch.mm(ks.to(torch.bfloat16), Kq,
+                                                out_dtype=torch.float32),
+                               reps=5),
+            b_gram=bound_ms((q * d + N * d + q * N) * 4,
+                            2 * d * q * N + 2 * d * (q + N) + 10 * q * N),
+            b_mirror=bound_ms(N * N * 2 + q * N * 6, 2 * q * N * N,
+                              PEAK_BF16_OPS))
+    out = {}
+    v = k.gram(torch.rand((1, d), generator=gen, device=dev), gp.x)[0] \
+        * gp.mask
+    tr = {t: cuda_ms(lambda: tv._trimv_pallas(cache.Linv, v, t), reps=5)
+          for t in (False, True)}
+    tr_plain = cuda_ms(lambda: tv.trimv_plain(cache.Linv, v), reps=2)
+    tr_lib = cuda_ms(lambda: torch.mv(cache.Linv, v), reps=5)
+    gt = cuda_ms(lambda: gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, n,
+                                                  form), reps=3)
+    gt_plain = cuda_ms(lambda: gp_ops.gram_train_plain(X2, sf2, inv_l, dadd,
+                                                       n, form), reps=1)
+    ti = cuda_ms(lambda: chol._tri_inv_panel(gp.L, chol.TRI_INV_BLOCK))
+    ti_plain = cuda_ms(lambda: chol.tri_inv_panel_plain(
+        gp.L, chol.TRI_INV_BLOCK), reps=1)
+    nb = N // chol.TRI_INV_BLOCK
+    Dd = torch.tril(chol._diag_blocks(gp.L, chol.TRI_INV_BLOCK)).contiguous()
+    eye = torch.eye(chol.TRI_INV_BLOCK, device=dev).expand(nb, B, B)
+    ti_lib = cuda_ms(lambda: torch.linalg.solve_triangular(Dd, eye,
+                                                           upper=False))
+    del Dd, eye
+    pf = cuda_ms(lambda: chol._panel_factor_pallas(D))
+    pf_plain = cuda_ms(lambda: chol.panel_factor_plain(D))
+    pf_lib = cuda_ms(lambda: torch.linalg.solve_triangular(
+        torch.linalg.cholesky_ex(D)[0], torch.eye(B, device=dev),
+        upper=False))
+    Kt = gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, n, form)
+    fact = event_ms(lambda: chol.cholesky_blocked(Kt), reps=1)
+    fact_lib = event_ms(lambda: torch.linalg.cholesky_ex(Kt), reps=1)
+    del Kt
+    inv = event_ms(lambda: chol.tri_inv_blocked(gp.L), reps=1)
+    Linv = cache.Linv
+    mbuf = torch.empty_like(cache.Kinv_q)
+    build = event_ms(lambda: gp_mod._mirror_from_linv(
+        Linv, torch.bfloat16, out=mbuf), reps=1)
+    del mbuf
+    fb = bound_ms(2 * N * N * 4, N ** 3 / 3)
+    # the panels skip Linv's zero rows: N^3 multiply-adds' worth of work
+    mb = bound_ms(N * N * 4 / 2 + N * N * 2, N ** 3)
+    log(f"{where}: kernel times at N = {N} (CUDA-graph replay; events for "
+        f"the factorization, the inverse and the mirror build):")
+    for q in (RESTARTS, SWEEP):
+        r = rows[q]
+        log(f"  gram ({q}x{N}) {r['gram']:.4f} ms, plain "
+            f"{r['gram_plain']:.4f}, bound {r['b_gram'][0]:.4f} "
+            f"({r['b_gram'][1]}); mirror {r['mirror']:.4f} ms, plain "
+            f"{r['mirror_plain']:.4f}, torch.mm(bf16) {r['mirror_lib']:.4f}, "
+            f"bound {r['b_mirror'][0]:.4f} ({r['b_mirror'][1]})")
+    b_tr = bound_ms((N * (N + 1) / 2 + 2 * N) * 4, N * (N + 1))
+    b_gt = bound_ms((N * d + N * N) * 4, 2 * d * N * N + 10 * N * N)
+    b_ti = bound_ms((nb * B * (B + 1) / 2 + nb * B * B) * 4, nb * B ** 3 / 3)
+    b_pf = bound_ms(3 * B * B * 4, 2 * B ** 3 / 3)
+    log(f"  trimv {tr[False]:.4f} / {tr[True]:.4f} ms (L v / L^T v), plain "
+        f"{tr_plain:.4f}, torch.mv {tr_lib:.4f}, bound {b_tr[0]:.4f}; "
+        f"gram_train {gt:.4f} ms, plain {gt_plain:.4f}, bound "
+        f"{b_gt[0]:.4f}; tri_inv_panel ({nb} blocks) {ti:.4f} ms, plain "
+        f"{ti_plain:.4f}, batched solve_triangular {ti_lib:.4f}, bound "
+        f"{b_ti[0]:.4f}; panel_factor {pf:.4f} ms, plain {pf_plain:.4f}, "
+        f"library {pf_lib:.4f}")
+    log(f"  factorization ({nb} panels) {fact:.1f} ms, cholesky_ex "
+        f"{fact_lib:.1f} ms, bound {fb[0]:.1f} ({fb[1]}); tri_inv_blocked "
+        f"{inv:.1f} ms, bound {fb[0]:.1f}; _mirror_from_linv {build:.1f} ms,"
+        f" bound {mb[0]:.1f} ({mb[1]})")
+    q64, q1k = rows[RESTARTS], rows[SWEEP]
+    out["gram"] = dict(ms=q1k["gram"], plain_ms=q1k["gram_plain"],
+                       bound_ms=q1k["b_gram"][0], at_q64=dict(
+                           ms=q64["gram"], plain_ms=q64["gram_plain"],
+                           bound_ms=q64["b_gram"][0]))
+    out["gram_train"] = dict(ms=gt, plain_ms=gt_plain, bound_ms=b_gt[0])
+    out["trimv"] = dict(ms=(tr[False] + tr[True]) / 2, plain_ms=tr_plain,
+                        library_ms=tr_lib, bound_ms=b_tr[0])
+    out["tri_inv_panel"] = dict(ms=ti, plain_ms=ti_plain, library_ms=ti_lib,
+                                bound_ms=b_ti[0], blocked_ms=inv)
+    out["panel_factor"] = dict(ms=pf, plain_ms=pf_plain, library_ms=pf_lib,
+                               bound_ms=b_pf[0], factorization_ms=fact,
+                               factorization_library_ms=fact_lib,
+                               factorization_bound_ms=fb[0])
+    out["mirror_mm"] = dict(ms=q64["mirror"], plain_ms=q64["mirror_plain"],
+                            library_ms=q64["mirror_lib"],
+                            bound_ms=q64["b_mirror"][0], at_q1024=dict(
+                                ms=q1k["mirror"],
+                                plain_ms=q1k["mirror_plain"],
+                                library_ms=q1k["mirror_lib"],
+                                bound_ms=q1k["b_mirror"][0]),
+                            build_ms=build, build_bound_ms=mb[0])
+    out["max_abs_err"] = max(err, err_pf, err_m)
+    return out
+
+
+def lite_path(dev, gen):
+    """scripts/large_n_bench.py --lite 32768, not cut: n = 32,768, d = 8,
+    capacity 33,280, SquaredExpARD (l = 0.3, noise 0.09) + DataMean, the
+    lite cache (Linv, a bf16 mirror, defer_m = 256, no f32 K^-1), then
+    LITE_ITERS iterations of RandomRestarts(Rprop(20), 64, 1024) on UCB
+    (mu + 0.5 sigma), each followed by a deferred append.  Then one more
+    append and a forced flush (eager), replayed on a clone inside BOStep's
+    flush graph (the same bits).  Checks: finite state; peak memory of the
+    build and of the flush (less than one f32 N x N above what stays
+    resident); the launch counts; the posterior against f64 after the
+    iterations and after the flush (check_posterior_exact); the mirror
+    after the flush against f64 Linv^T Linv on row panels, with the
+    pre-flush mirror as a control that must fail; and, after the memory
+    readings, each kernel against its plain version at the run's shapes.
+    Returns its numbers, its launches and the kernels' rows."""
+    from limbo_tpu_torch.bo.graph import _CACHE_FIELDS, BOStep
+    from limbo_tpu_torch.models import gp as gp_mod
+    from limbo_tpu_torch.ops import _cuda
+
+    N = LITE_CAPACITY
+    nn4 = N * N * 4
+    path = MainPath(dev, gen, n=LITE_N, capacity=N, ell=HP_ELL,
+                    noise=HP_NOISE, y_noise=HP_Y_NOISE)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    gp = path.fit()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = gp_mod.QueryCache.build(gp, with_Linv=True,
+                                    qdtype=torch.bfloat16,
+                                    defer_m=LITE_DEFER_M, lite=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    build_over = torch.cuda.max_memory_allocated() - resident
+    if cache.Kinv is not None or cache.Kinv_q.dtype != torch.bfloat16:
+        raise AssertionError("lite path: the cache is not lite")
+    gp, cache, t_iters, t_first = bo_iterations(path, gp, cache, LITE_ITERS)
+    launches = dict(_cuda.LAUNCHES)
+    log(f"lite path: fit {t_fit:.3f} s, lite cache build {t_build:.3f} s "
+        f"(resident {resident / 1e9:.3f} GB; the build's peak above it "
+        f"{build_over / 1e9:.3f} GB, limit one f32 N x N, "
+        f"{nn4 / 1e9:.3f} GB); {LITE_ITERS} iterations {t_iters:.3f} s = "
+        f"{LITE_ITERS / t_iters:.3f} iters/s (first {t_first:.3f} s)")
+    log(f"  launches: {launches}")
+    if not build_over < nn4:
+        raise AssertionError("lite path: the build allocated an f32 N x N "
+                             "beyond its resident state")
+    check_finite("lite path", L=gp.L, alpha=gp.alpha, Linv=cache.Linv,
+                 Kinv_q=cache.Kinv_q.float())
+    per = (STEPS + 2) * LITE_ITERS
+    check_counts("lite path", launches, {
+        "panel_factor": (N // 128, N // 128), "tri_inv_panel": (1, 1),
+        "gram_train": (1, 1), "gram": (per, per), "mirror_mm": (per, per),
+        "trimv": (2 * LITE_ITERS, 2 * LITE_ITERS)})
+    with uncounted():
+        errs = dict(iters=check_posterior_exact(gp, torch.rand(
+            (RESTARTS, DIM), generator=gen, device=dev)))
+
+    # the flush: one append, then one with the flush forced, eagerly on
+    # the state and by BOStep's replays on a clone (the first step is its
+    # warm-up and capture, the second a replay of the flush graph)
+    pts = torch.rand((2, DIM), generator=gen, device=dev)
+    gp_c, cache_c = clone_state(gp, cache)
+    w = gp_mod._panel_width(N)
+    last = (N // w - 1) * w                 # holds the appended rows
+    panels = [(0, w), (N // 2 // w * w, N // 2 // w * w + w), (last, N)]
+    before = {r: cache.Kinv_q[r[0]:r[1]].clone() for r in panels}
+    _cuda.reset_launches()
+    gp, cache = gp_mod.add_sample_cached(gp, cache, pts[0],
+                                         path.objective(pts[0]),
+                                         fast_update="deferred", flush=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gp, cache = gp_mod.add_sample_cached(gp, cache, pts[1],
+                                         path.objective(pts[1]),
+                                         fast_update="deferred", flush=True)
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    flush_over = torch.cuda.max_memory_allocated() \
+        - torch.cuda.memory_allocated()
+    log(f"lite path: the forced flush {t_flush:.3f} s (its peak above the "
+        f"resident state {flush_over / 1e9:.3f} GB, limit "
+        f"{nn4 / 1e9:.3f} GB); base_n {cache.base_n}")
+    if not flush_over < nn4:
+        raise AssertionError("lite path: the flush allocated an f32 N x N "
+                             "beyond its resident state")
+    if cache.base_n != LITE_N + LITE_ITERS + 2 or bool(cache.P.any()):
+        raise AssertionError("lite path: the flush did not happen")
+    step = BOStep(gp_c, cache_c, lambda model, it: pts.index_select(
+        0, it.reshape(1))[0], path.objective, gen, fast_update="deferred")
+    del gp_c, cache_c
+    step.step(flush=False)
+    step.step(flush=True)
+    launches_flush = dict(_cuda.LAUNCHES)
+    pairs = {k: (getattr(gp, k), getattr(step.gp, k))
+             for k in ("x", "y", "L", "alpha", "n_dev")}
+    pairs["mean"] = (gp.mean.value, step.gp.mean.value)
+    pairs.update({k: (getattr(cache, k), getattr(step.cache, k))
+                  for k in _CACHE_FIELDS if getattr(cache, k) is not None})
+    differ = [k for k, (a, b) in pairs.items() if not same_bits(a, b)]
+    if differ or step.cache.Kinv is not None or step.cache.K is not None:
+        raise AssertionError(f"lite path: the captured flush differs from "
+                             f"the eager one in {differ}")
+    if not (step.graphs.graphs and True in step.graphs.graphs
+            and step.cache.base_n == cache.base_n):
+        raise AssertionError("lite path: the flush graph did not replay")
+    log(f"  the flush replayed in BOStep's flush graph == eager, bit for "
+        f"bit: {', '.join(pairs)}: ok; launches of the two appends, eager "
+        f"and captured: {launches_flush}")
+    check_counts("lite path (flush)", launches_flush,
+                 {"trimv": (8, 8), "mirror_mm": (0, 0)})
+    del step
+    torch.cuda.empty_cache()
+    check_finite("lite path (flush)", L=gp.L, alpha=gp.alpha,
+                 Linv=cache.Linv, Kinv_q=cache.Kinv_q.float())
+    with uncounted():
+        errs["flush"] = check_posterior_exact(gp, torch.rand(
+            (RESTARTS, DIM), generator=gen, device=dev))
+        errs["mirror"] = check_mirror_panels(
+            "lite path", cache.Kinv_q, cache.Linv, panels, control=before)
+        del before
+        kern = kernel_rows_at("lite path", gp, cache, gen, dev)
+    X, Y = path.X, path.Y
+    del gp, cache, path
+    torch.cuda.empty_cache()
+    return dict(fit_s=t_fit, build_s=t_build, iters_per_s=LITE_ITERS
+                / t_iters, first_iter_s=t_first, flush_s=t_flush,
+                resident_gb=resident / 1e9, build_peak_over_gb=build_over
+                / 1e9, flush_peak_over_gb=flush_over / 1e9,
+                limit_gb=nn4 / 1e9, errs=errs), \
+        {"lite": launches, "lite_flush": launches_flush}, kern, (X, Y)
+
+
+def modes_path(dev, gen):
+    """scripts/update_mode_bench.py's n = 10k (bench.py's workload: the
+    main path's data, kernel and capacity 10240, a bf16 mirror): the cache
+    built with K for "refined" and plainly for True; MODES_ITERS BO
+    iterations in "refined" (the main path's acquisition), then the same
+    proposals appended in True.  Held: finite states, the launch counts,
+    and MODES_GRAPH_ITERS refined iterations captured through BOStep
+    against eager ones, bit for bit.  Printed, not held: both posteriors
+    against f64, the refined pivot beside the raw K^-1 k and the solve
+    pivot against the f64 pivot, and both K^-1 against a rebuilt one.  At
+    this conditioning the matvec pivots lose the f32 posterior mean within
+    a few appends in the reference too (ROADMAP.md queue 3), so no limit
+    there would be sound."""
+    from limbo_tpu_torch.bo.graph import BOStep
+    from limbo_tpu_torch.models import gp as gp_mod
+    from limbo_tpu_torch.ops import _cuda
+
+    path = MainPath(dev, gen)
+    path.fast_update = "refined"
+    gp0 = path.fit()
+    g_t, _ = clone_state(gp0, gp_mod.QueryCache())
+    g_c, _ = clone_state(gp0, gp_mod.QueryCache())
+    g_e, _ = clone_state(gp0, gp_mod.QueryCache())
+    counts = {}
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    cache = gp_mod.QueryCache.build(gp0, with_K=True, qdtype=torch.bfloat16)
+    gp = gp0
+    xs = []
+    for _ in range(MODES_ITERS):
+        x = path.acquire(gp, cache)
+        gp, cache = path.append(gp, cache, x)
+        xs.append(x)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    counts["modes_refined"] = dict(_cuda.LAUNCHES)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    cache_t = gp_mod.QueryCache.build(g_t, qdtype=torch.bfloat16)
+    for x in xs:
+        g_t, cache_t = gp_mod.add_sample_cached(
+            g_t, cache_t, x, path.objective(x), fast_update=True)
+    torch.cuda.synchronize()
+    t_raw = time.perf_counter() - t0
+    counts["modes_true"] = dict(_cuda.LAUNCHES)
+    log(f"modes path: {MODES_ITERS} refined iterations (build with K "
+        f"included) {t_ref:.3f} s; the same {MODES_ITERS} proposals "
+        f"appended in True mode (build included) {t_raw:.3f} s")
+    log(f"  launches, refined: {counts['modes_refined']}; True: "
+        f"{counts['modes_true']}")
+    per = (STEPS + 2) * MODES_ITERS
+    check_counts("modes path (refined)", counts["modes_refined"], {
+        "gram": (per, per), "mirror_mm": (per, per), "gram_train": (1, 1),
+        "tri_inv_panel": (1, 1), "trimv": (0, 0)})
+    check_counts("modes path (True)", counts["modes_true"], {
+        "tri_inv_panel": (1, 1), "trimv": (0, 0)})
+    check_finite("modes path", L=gp.L, alpha=gp.alpha, Kinv=cache.Kinv,
+                 K=cache.K, L_true=g_t.L, Kinv_true=cache_t.Kinv)
+    errs = {}
+    with uncounted():
+        # not held, printed: at this conditioning (l = 1, noise 0.01,
+        # cond(K) ~ 1e6) the matvec pivots lose the f32 posterior in both
+        # packages (ROADMAP.md queue 3)
+        Xq = torch.rand((RESTARTS, DIM), generator=gen, device=dev)
+        for name, g in (("refined", gp), ("true", g_t)):
+            mu_, var_ = gp_mod.query(g, Xq)
+            mu64, var64 = posterior_f64(g, Xq)
+            errs[f"{name}_mu"] = float((mu_[:, 0].double()
+                                        - mu64[:, 0]).abs().max())
+            errs[f"{name}_var"] = float((var_.double() - var64).abs().max())
+        log(f"  not held: the posterior against f64 after {MODES_ITERS} "
+            f"appends, max |err|: refined mu {errs['refined_mu']:.3e}, var "
+            f"{errs['refined_var']:.3e}; True mu {errs['true_mu']:.3e}, var "
+            f"{errs['true_var']:.3e}")
+        # the pivot of one more append, three ways, against f64
+        x = torch.rand((1, DIM), generator=gen, device=dev)
+        n = gp.n
+        mask = gp.mask
+        kv = gp.kernel.gram(x, gp.x)[0] * mask
+        u_raw = (cache.Kinv @ kv) * mask
+        u_ref = (u_raw + cache.Kinv @ (kv - cache.K @ u_raw)) * mask
+        u_sol = torch.linalg.solve_triangular(
+            gp.L.T, torch.linalg.solve_triangular(gp.L, kv[:, None],
+                                                  upper=False),
+            upper=True)[:, 0] * mask
+        K64 = cache.K[:n, :n].double()
+        u64 = torch.cholesky_solve(kv[:n, None].double(),
+                                   torch.linalg.cholesky(K64))[:, 0]
+        del K64
+        pe = {k: float((u[:n].double() - u64).abs().max()
+                       / u64.abs().max())
+              for k, u in (("raw", u_raw), ("refined", u_ref),
+                           ("solve", u_sol))}
+        errs["pivot_rel"] = pe
+        log(f"  not held: the pivot u = K^-1 k of one more append against "
+            f"f64 (the f32 K's), max |err| / max |u|: raw Kinv k "
+            f"{pe['raw']:.3e}, refined {pe['refined']:.3e}, two solves on L "
+            f"{pe['solve']:.3e}")
+        rebuilt = gp_mod.QueryCache.build(gp_mod.recompute(g_t))
+        drift = float((cache_t.Kinv - rebuilt.Kinv).abs().max()
+                      / rebuilt.Kinv.abs().max())
+        drift_ref = float((cache.Kinv - rebuilt.Kinv).abs().max()
+                          / rebuilt.Kinv.abs().max())
+        del rebuilt
+        errs.update(true_drift_rel=drift, refined_drift_rel=drift_ref)
+        log(f"  not held: K^-1 after {MODES_ITERS} appends against a "
+            f"rebuilt one, max |d| / max |K^-1|: True {drift:.3e}, refined "
+            f"{drift_ref:.3e}")
+    del gp, cache, g_t, cache_t, gp0
+    torch.cuda.empty_cache()
+
+    # captured against eager, bit for bit
+    cache_c = gp_mod.QueryCache.build(g_c, with_K=True,
+                                      qdtype=torch.bfloat16)
+    cache_e = gp_mod.QueryCache.build(g_e, with_K=True,
+                                      qdtype=torch.bfloat16)
+    gens = [torch.Generator(device=dev).manual_seed(17) for _ in range(2)]
+    xs_c = torch.full((MODES_GRAPH_ITERS, DIM), torch.nan, device=dev)
+    step = BOStep(g_c, cache_c, lambda model, it: path.propose(model,
+                                                                gens[1]),
+                  path.objective, gens[1], fast_update="refined",
+                  on_sample=lambda it, x, y: xs_c.index_copy_(
+                      0, it.reshape(1), x[None, :]))
+    del g_c, cache_c
+    xs_e = []
+    _cuda.reset_launches()
+    for _ in range(MODES_GRAPH_ITERS):
+        x = path.acquire(g_e, cache_e, gens[0])
+        g_e, cache_e = path.append(g_e, cache_e, x)
+        xs_e.append(x)
+    counts["modes_graph_eager"] = dict(_cuda.LAUNCHES)
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MODES_GRAPH_ITERS):
+        step.step()
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t0
+    counts["modes_graph"] = dict(_cuda.LAUNCHES)
+    pairs = dict(proposals=(torch.stack(xs_e), xs_c))
+    pairs.update({k: (getattr(g_e, k), getattr(step.gp, k))
+                  for k in ("x", "y", "L", "alpha", "n_dev")})
+    pairs.update({k: (getattr(cache_e, k), getattr(step.cache, k))
+                  for k in ("Kinv", "K", "Kinv_q")})
+    differ = [k for k, (a, b) in pairs.items() if not same_bits(a, b)]
+    if differ:
+        raise AssertionError(f"modes path: captured and eager refined runs "
+                             f"differ in {differ}")
+    if counts["modes_graph"] != counts["modes_graph_eager"]:
+        raise AssertionError("modes path: the captured run's launches are "
+                             "not the eager run's")
+    log(f"  refined, captured == eager, bit for bit, over "
+        f"{MODES_GRAPH_ITERS} iterations: {', '.join(pairs)}: ok (captured "
+        f"{t_cap:.3f} s with the warm-up and capture; launches "
+        f"{counts['modes_graph']})")
+    del step, g_e, cache_e
+    torch.cuda.empty_cache()
+    return dict(refined_s=t_ref, true_s=t_raw, captured_s=t_cap,
+                errs=errs), counts
+
+
+def gram_rows_check(where: str, kernel, X1, X2) -> float:
+    """gram of the run's kernel (its own form and scaling) at (X1, X2)
+    against its plain version, at the kernel phase's tolerance."""
+    from limbo_tpu_torch.ops import gram_pallas as gp_ops
+
+    form, A, sf2, inv_l = kernel._fused_train_args(X1)
+    B = kernel._fused_train_args(X2)[1]
+    if not gp_ops.use_pallas(A, B):
+        raise AssertionError(f"{where}: gram ({A.shape[0]}x{B.shape[0]}) is "
+                             "under the kernel's size rule")
+    kk = gp_ops.gram_pallas(A, B, sf2, inv_l, form)
+    p = gp_ops.gram_plain(A, B, sf2, inv_l, form)
+    return check_close(f"{where}: gram {form} ({A.shape[0]}x{B.shape[0]})",
+                       kk, p, 2e-6 + 2e-5 * p.abs(), "2e-6 + 2e-5|plain|")
+
+
+def nlml_abs_terms(sp, spgp) -> float:
+    """The sum of the absolute values of the FITC NLML's terms in f64 (the
+    scale of its f32 accumulation error)."""
+    from limbo_tpu_torch.means.means import prepare_mean
+
+    k64, X, Y = cast(sp.kernel, torch.float64), sp.x.double(), sp.y.double()
+    mask = sp.mask.double()
+    mean = prepare_mean(cast(sp.mean, torch.float64), Y, mask)
+    Yc = (Y - mean(X)) * mask[:, None]
+    _, La, _, lam, ys, beta = spgp._fitc_terms(k64, sp.xb.double(), X, Yc,
+                                               mask, k64.noise)
+    p = Y.shape[1]
+    return float(0.5 * (torch.sum(ys * ys) + torch.sum(beta * beta))
+                 + 0.5 * p * (torch.sum(torch.log(lam).abs() * mask)
+                              + 2.0 * torch.sum(torch.log(
+                                  torch.diagonal(La)).abs()))
+                 + 0.5 * sp.n * p * math.log(2 * math.pi))
+
+
+def cast(module, dtype):
+    """A copy of a kernel or mean module in another dtype (Module.to casts
+    in place)."""
+    import copy
+
+    return copy.deepcopy(module).to(dtype)
+
+
+def perturbed_f64(fn, inputs: dict, rel: float, dtype=torch.float64,
+                  seed: int = 2):
+    """fn(**inputs) in ``dtype`` with every input multiplied by 1 + rel e,
+    e uniform in [-1, 1] from a fixed seed.  In f64 with rel = 2^-24: the
+    move of the function under one f32 rounding of its inputs.  In f32 with
+    rel = 2^-23 (one f32 step): also the f32 evaluation's own rounding,
+    which a sum over many terms (an NLML and its gradient over n points)
+    carries beyond that move.  ``seed`` draws another e."""
+    g = torch.Generator().manual_seed(seed)
+    moved = {k: (v.double() * (1.0 + rel * (torch.rand(
+        v.shape, generator=g, dtype=torch.float64) * 2 - 1).to(v.device))
+        ).to(dtype) for k, v in inputs.items()}
+    return fn(**moved)
+
+
+def models_path(dev, gen, data):
+    """The other model families on the card.  (a) iterative.fit on the lite
+    path's n = 32,768 data (capacity 33,280, block 2048, tol 1e-5, maxiter
+    256), a query with variance at 64 points, its mean against the exact
+    f64 posterior within the identity mu - mu_exact = (K^-1 k)^T r,
+    r = K alpha_cg - y in f64; then add_sample + refit.  (b) BOptimizer(model_type="iterative") on
+    -Hartmann6, 4096 init points (capacity 5120), MODELS_B_ITERS
+    iterations.  (c) SPGP on the same data at m = ceil(0.1 n) = 3277: the
+    NLML and its gradient and the query against the same functions in f64,
+    within BO_SLACK times their move under one f32 rounding of the inputs;
+    SPGPHpOpt cut to Rprop(10).  (d) BOptimizer(model_type="spgp",
+    hp_opt=SPGPHpOpt(), hp_period=10) at m = 16, MODELS_D_ITERS
+    iterations.  (e) BOptimizer(max_model_points=200) with 256 init points,
+    MODELS_E_ITERS iterations.  (f) MultiGP.fit, 2 outputs at n = 4096, bit
+    for bit against two independent gp.fits, then ParallelLFOpt cut to
+    KernelLFOpt(Rprop(5)).  Each BO run checks best_value == max(observed)
+    and a finite model; each kernel is held against its plain version at
+    the shapes the subpath gave it."""
+    from limbo_tpu_torch.bo import BOptimizer, MaxIterations, RandomSampling
+    from limbo_tpu_torch.kernels import SquaredExpARD
+    from limbo_tpu_torch.kernels.base import JITTER
+    from limbo_tpu_torch.means import DataMean, NullMean
+    from limbo_tpu_torch.models import (gp as gp_mod, iterative, multi_gp,
+                                        spgp)
+    from limbo_tpu_torch.models.hp_opt import KernelLFOpt
+    from limbo_tpu_torch.opt import Rprop
+    from limbo_tpu_torch.ops import _cuda
+
+    X, Y = data
+    n, d = X.shape
+    out, counts, err = {}, {}, 0.0
+
+    def kern():
+        k = SquaredExpARD.create(dim=d, noise=HP_NOISE, device=dev)
+        return k.replace(log_ell=torch.full((d,), math.log(HP_ELL),
+                                            device=dev))
+
+    # (a) the CG GP
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    it = iterative.fit(kern(), DataMean.create(device=dev), X, Y,
+                       capacity=LITE_CAPACITY, block=2048, cg_tol=1e-5,
+                       cg_maxiter=256, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    Xq = torch.rand((RESTARTS, d), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mu, var = iterative.query(it, Xq)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    iters_fit, res_fit = int(it.cg_iters), float(it.cg_residual.max())
+    with uncounted():
+        # the identity in f64: with r = K alpha - y_c, mu_cg - mu_exact =
+        # (K^-1 k)^T r; the port's f32 query adds its own rounding
+        k64 = cast(it.kernel, torch.float64)
+        X64, a64 = X.double(), it.alpha[:n].double()
+        yc64 = (it.y[:n] - it.mean(it.x[:n])).double()
+        K64 = k64.gram(X64, X64)
+        K64.diagonal().add_(float(it.kernel.noise) + JITTER)
+        r64 = K64 @ a64 - yc64
+        Lc = torch.linalg.cholesky(K64)
+        del K64
+        ks64 = k64.gram(Xq.double(), X64)
+        mu64 = ks64 @ torch.cholesky_solve(yc64, Lc)
+        dmu = (torch.cholesky_solve(ks64.T, Lc).T @ r64)
+        del Lc
+        mu_cg = (mu - it.mean(Xq)).double()
+        s = float(((X * torch.exp(-it.kernel.log_ell)) ** 2).sum(1).max())
+        tol = F32_U * ((n ** 0.5 + 8 * s) * (ks64.abs() @ a64.abs())
+                       + 2 * mu.abs().double())
+        e_id = check_close("iterative: mu - mu_exact vs (K^-1 k)^T r",
+                           mu_cg - mu64, dmu, tol,
+                           "2^-24 ((sqrt(n) + 8 max|x/l|^2) (|ks| @ "
+                           "|alpha|) + 2 |mu|)")
+        log(f"  |mu - mu_exact| up to {float((mu_cg - mu64).abs().max()):.3e}"
+            f", of which the CG residual's share (K^-1 k)^T r up to "
+            f"{float(dmu.abs().max()):.3e}; var in [{float(var.min()):.3e}, "
+            f"{float(var.max()):.3e}]")
+        err = max(err, gram_rows_check("iterative (a)", it.kernel,
+                                       X[:2048], it.x),
+                  gram_rows_check("iterative (a)", it.kernel, Xq, it.x))
+    xn = torch.rand((d,), generator=gen, device=dev)
+    it = iterative.add_sample(it, xn, torch.sin(3.0 * xn.sum())[None])
+    t0 = time.perf_counter()
+    it = iterative.refit(it)
+    torch.cuda.synchronize()
+    t_refit = time.perf_counter() - t0
+    counts["models_a"] = dict(_cuda.LAUNCHES)
+    check_finite("iterative (a)", alpha=it.alpha, mu=mu, var=var)
+    nb = -(-it.capacity // 2048)
+    check_counts("iterative (a)", counts["models_a"], {
+        "gram": (nb * (iters_fit + int(it.cg_iters)) + 1, None)})
+    log(f"models path (a) iterative: fit {t_fit:.3f} s ({iters_fit} CG "
+        f"iterations, max residual {res_fit:.3e} of tol 1e-5 |b|), query "
+        f"with variance at {RESTARTS} points {t_q:.3f} s, refit after an "
+        f"append {t_refit:.3f} s ({int(it.cg_iters)} iterations, max "
+        f"residual {float(it.cg_residual.max()):.3e}); launches "
+        f"{counts['models_a']}")
+    out["a"] = dict(fit_s=t_fit, query_s=t_q, refit_s=t_refit,
+                    cg_iters=[iters_fit, int(it.cg_iters)],
+                    cg_residual=[res_fit, float(it.cg_residual.max())],
+                    identity_err=e_id)
+    del it
+    torch.cuda.empty_cache()
+
+    # (b) BOptimizer over the CG GP
+    bo = BOptimizer(model_type="iterative", init=RandomSampling(BO_C_INIT),
+                    stop=(MaxIterations(MODELS_B_ITERS),))
+    state, counts["models_b"], out["b"] = bo_run(
+        "models b, iterative", bo, dev, gen, MODELS_B_ITERS)
+    check_counts("models path (b)", counts["models_b"],
+                 {"gram": (MODELS_B_ITERS, None)})
+    with uncounted():
+        err = max(err, gram_rows_check("iterative (b)", state.gp.kernel,
+                                       state.gp.x[:2048], state.gp.x))
+    out["b"]["cg_iters_last_refit"] = int(state.gp.cg_iters)
+    del state, bo
+
+    # (c) SPGP at m = ceil(0.1 n)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    sp = spgp.fit(kern(), DataMean.create(device=dev), X, Y,
+                  generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    m = sp.m
+
+    def nlml(xb, p, x, y):
+        kk = cast(sp.kernel, p.dtype).with_params(p)
+        return spgp.neg_log_marginal_likelihood(
+            kk, cast(sp.mean, p.dtype), xb, x, y, sp.n)
+
+    inputs = dict(xb=sp.xb, p=sp.kernel.params, x=sp.x, y=sp.y)
+    xb = sp.xb.clone().requires_grad_(True)
+    p = sp.kernel.params.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    v = nlml(xb, p, sp.x, sp.y)
+    gx, gp_ = torch.autograd.grad(v, (xb, p))
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    g32 = torch.cat([gx.reshape(-1), gp_])
+
+    def value_grad(**kw):
+        xb_ = kw["xb"].requires_grad_(True)
+        p_ = kw["p"].requires_grad_(True)
+        val = nlml(xb_, p_, kw["x"], kw["y"])
+        g1, g2 = torch.autograd.grad(val, (xb_, p_))
+        return val.detach(), torch.cat([g1.reshape(-1), g2])
+
+    with uncounted():
+        v64, g64 = value_grad(**{k: t.double() for k, t in inputs.items()})
+        vs, gs = perturbed_f64(value_grad, inputs, F32_U)
+        sens_v, sens_g = float((vs - v64).abs()), float(
+            (gs - g64).abs().max())
+        # the NLML is a sum over the n points, whose f32 accumulation
+        # (sqrt(n) 2^-24 sum|terms|) the input move does not show
+        acc = n ** 0.5 * F32_U * nlml_abs_terms(sp, spgp)
+        e_v = check_close("spgp NLML vs f64", v.detach(), v64,
+                          BO_SLACK * sens_v + acc,
+                          f"{BO_SLACK} x its move under one f32 rounding "
+                          f"+ sqrt(n) 2^-24 sum|terms| "
+                          f"({BO_SLACK * sens_v + acc:.3e})")
+        # the f32 gradient's own rounding: its largest move under one f32
+        # step of the inputs (three draws), computed in f32
+        sens_g32 = max(float((perturbed_f64(
+            value_grad, inputs, 2 * F32_U, torch.float32, seed)[1]
+            - g32).abs().max()) for seed in (2, 3, 4))
+        tol_g = BO_SLACK * max(sens_g, sens_g32)
+        e_g = check_close("spgp NLML gradient vs f64", g32, g64, tol_g,
+                          f"{BO_SLACK} x the larger of its move under one "
+                          f"f32 rounding (f64: {sens_g:.3e}) and under one "
+                          f"f32 step (f32, largest of 3: {sens_g32:.3e})")
+        ctl_g = float((perturbed_f64(value_grad, inputs, 2.0 ** -9,
+                                     torch.float32)[1] - g64).abs().max())
+        log(f"  in units of that limit: {e_g / tol_g:.3g}; control: the f32 "
+            f"gradient on inputs moved by 2^-9 is off by {ctl_g:.3e} "
+            f"({ctl_g / tol_g:.3g} of the limit); max |g| "
+            f"{float(g64.abs().max()):.3e}")
+        if not ctl_g > tol_g:
+            raise AssertionError("spgp (c): a gradient from inputs moved by "
+                                 "2^-9 passes the gradient check")
+
+        def q(**kw):
+            dt = kw["p"].dtype
+            kk = cast(sp.kernel, dt).with_params(kw["p"])
+            s64 = sp.replace(kernel=kk, mean=cast(sp.mean, dt),
+                             xb=kw["xb"], x=kw["x"], y=kw["y"])
+            mu_, var_ = spgp.query(s64, kw["q"])
+            return torch.cat([mu_[:, 0], var_])
+
+        qin = dict(inputs, q=Xq)
+        mv = torch.cat([t.reshape(-1) for t in spgp.query(sp, Xq)])
+        mv64 = q(**{k: t.double() for k, t in qin.items()})
+        sens_q = float((perturbed_f64(q, qin, F32_U) - mv64).abs().max())
+        sens_q32 = float((perturbed_f64(q, qin, 2 * F32_U, torch.float32)
+                          - mv).abs().max())
+        tol_q = BO_SLACK * max(sens_q, sens_q32)
+        e_q = check_close("spgp query (mu, var) vs f64", mv, mv64, tol_q,
+                          f"{BO_SLACK} x the larger of its move under one "
+                          f"f32 rounding (f64: {sens_q:.3e}) and under one "
+                          f"f32 step (f32: {sens_q32:.3e})")
+        # control: the f32 query on inputs moved by 2^-9 misses the limit
+        ctl = float((perturbed_f64(q, qin, 2.0 ** -9, torch.float32)
+                     - mv64).abs().max())
+        log(f"  control: the f32 query on inputs moved by 2^-9 is off by "
+            f"{ctl:.3e}")
+        if not ctl > tol_q:
+            raise AssertionError("spgp (c): a query from inputs moved by "
+                                 "2^-9 passes the query check")
+        err = max(err, gram_rows_check("spgp (c)", sp.kernel, sp.x, sp.xb),
+                  gram_rows_check("spgp (c)", sp.kernel, sp.xb, sp.xb))
+    v0 = float(v.detach())
+    t0 = time.perf_counter()
+    sp2 = spgp.SPGPHpOpt(optimizer=Rprop(iterations=10))(sp, gen)
+    torch.cuda.synchronize()
+    t_hp = time.perf_counter() - t0
+    v1 = float(spgp.neg_log_marginal_likelihood(sp2.kernel, sp2.mean,
+                                                sp2.xb, sp2.x, sp2.y, sp2.n))
+    counts["models_c"] = dict(_cuda.LAUNCHES)
+    log(f"models path (c) spgp: n {n}, m {m}: fit {t_fit:.3f} s, one f32 "
+        f"NLML + gradient {t_eval:.3f} s, SPGPHpOpt(Rprop(10)) {t_hp:.3f} "
+        f"s, NLML {v0:.4f} -> {v1:.4f}; launches {counts['models_c']}")
+    if not v1 <= v0:
+        raise AssertionError("spgp (c): the NLML rose during SPGPHpOpt")
+    check_finite("spgp (c)", xb=sp2.xb, p=sp2.kernel.params)
+    check_counts("spgp (c)", counts["models_c"], {"gram": (2 * 12, None)})
+    out["c"] = dict(fit_s=t_fit, eval_s=t_eval, hp_s=t_hp, m=m,
+                    nlml=[v0, v1], errs=dict(nlml=e_v, grad=e_g, query=e_q,
+                                             sens_nlml=sens_v,
+                                             sens_grad=[sens_g, sens_g32],
+                                             control_grad=ctl_g,
+                                             sens_query=[sens_q, sens_q32],
+                                             control_query=ctl))
+    del sp, sp2, xb, p, gx, gp_, v
+    torch.cuda.empty_cache()
+
+    # (d) BOptimizer over SPGP, (e) capped at max_model_points
+    bo = BOptimizer(model_type="spgp", hp_opt=spgp.SPGPHpOpt(), hp_period=10,
+                    stop=(MaxIterations(MODELS_D_ITERS),))
+    state, counts["models_d"], out["d"] = bo_run(
+        "models d, spgp m = 16", bo, dev, gen, MODELS_D_ITERS)
+    del state, bo
+    bo = BOptimizer(max_model_points=200, init=RandomSampling(256),
+                    stop=(MaxIterations(MODELS_E_ITERS),))
+    state, counts["models_e"], out["e"] = bo_run(
+        "models e, max_model_points = 200", bo, dev, gen, MODELS_E_ITERS,
+        n_final=200)
+    check_counts("models path (e)", counts["models_e"], {
+        "gram": (MODELS_E_ITERS, None), "gram_train": (MODELS_E_ITERS, None)})
+    with uncounted():
+        err = max(err, gram_rows_check(
+            "sparse (e)", state.gp.kernel, torch.rand(
+                (SWEEP, BO_DIM), generator=gen, device=dev), state.gp.x))
+    del state, bo
+
+    # (f) MultiGP
+    Xm, Ym = X[:4096], torch.cat([Y[:4096], torch.cos(3.0 * X[:4096].sum(
+        1, keepdim=True))], dim=1)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    mg = multi_gp.fit(kern(), DataMean.create(dim_out=2, device=dev), Xm, Ym,
+                      device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    with uncounted():
+        for j, g in enumerate(mg.gps):
+            f = gp_mod.fit(kern(), NullMean(), Xm, g.y[:Xm.shape[0]],
+                           capacity=mg.capacity, device=dev)
+            if not (same_bits(f.L, g.L) and same_bits(f.alpha, g.alpha)):
+                raise AssertionError(f"multi (f): output {j} is not the "
+                                     f"independent fit's bits")
+    lml0 = [float(gp_mod.log_lik(g)) for g in mg.gps]
+    t0 = time.perf_counter()
+    mg2 = multi_gp.ParallelLFOpt(KernelLFOpt(Rprop(iterations=5)))(mg, gen)
+    torch.cuda.synchronize()
+    t_hp = time.perf_counter() - t0
+    lml1 = [float(gp_mod.log_lik(g)) for g in mg2.gps]
+    counts["models_f"] = dict(_cuda.LAUNCHES)
+    log(f"models path (f) MultiGP: fit 2 outputs at n 4096 {t_fit:.3f} s, "
+        f"each output bit for bit the independent fit: ok; ParallelLFOpt("
+        f"KernelLFOpt(Rprop(5))) {t_hp:.3f} s, LML {lml0} -> {lml1}; "
+        f"launches {counts['models_f']}")
+    check_finite("multi (f)", **model_fields(mg2))
+    if not all(b >= a for a, b in zip(lml0, lml1)):
+        raise AssertionError("multi (f): an output's LML fell during hp-opt")
+    check_counts("multi (f)", counts["models_f"], {
+        "gram_train": (2 + 2 * 6, None), "tri_inv_panel": (2 * 5, None)})
+    out["f"] = dict(fit_s=t_fit, hp_s=t_hp, lml=[lml0, lml1])
+    out["kernel_err"] = err
+    del mg, mg2
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1855,9 +2777,13 @@ def main() -> int:
     graph, graph_e, graph_c = graph_path(dev, args.seed)
     jit, jit_counts = jit_path(dev, gen)
     suite, suite_counts, sym = suite_path(dev, gen)
+    lite, lite_counts, at_lite, lite_data = lite_path(dev, gen)
+    modes, modes_counts = modes_path(dev, gen)
+    models, models_counts = models_path(dev, gen, lite_data)
     by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts,
                "graph_eager_n10k": graph_e, "graph_n10k": graph_c,
-               **jit_counts, **suite_counts}
+               **jit_counts, **suite_counts, **lite_counts, **modes_counts,
+               **models_counts}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
              "bytes_share", "launch_floor_ms", "turns", "blocked")
@@ -1876,6 +2802,7 @@ def main() -> int:
                                       if x in small[k]}
         row.update({x: e[x] for x in e if x in extra
                     or x.startswith(("at_", "fact", "promotion"))})
+        row[f"at_N{LITE_CAPACITY}"] = at_lite[k]
         kernels.append(row)
     kernels.append(dict(
         name="sym_eig", **{x: sym[x] for x in ("route", "source",
@@ -1895,6 +2822,9 @@ def main() -> int:
     print(json.dumps({"graph_path": graph | {"card": card}}))
     print(json.dumps({"jit_path": jit | {"card": card}}))
     print(json.dumps({"suite_path": suite | {"card": card}}))
+    print(json.dumps({"lite_path": lite | {"card": card}}))
+    print(json.dumps({"modes_path": modes | {"card": card}}))
+    print(json.dumps({"models_path": models | {"card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

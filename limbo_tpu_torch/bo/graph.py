@@ -18,9 +18,12 @@ CUDA device records it once as a CUDA graph and replays it:
   between replays (a refit, the hp cadence) copies in the same way
   (``BOStep.assign``), with no new capture.
 * **Two graphs in one memory pool** for the "deferred" append: the
-  iteration without and with the flush of the pending pivots.  The host
-  knows the flush cadence from its own counts (one append an iteration)
-  and replays one or the other; it never reads a count from the card.
+  iteration without and with the flush of the pending pivots (for a lite
+  cache with a bf16 mirror, the flush rebuilds the mirror from Linv panel
+  by panel, in place, inside its graph).  The host knows the flush cadence
+  from its own counts (one append an iteration) and replays one or the
+  other; it never reads a count from the card.  The immediate appends
+  ("refined", True, "linv", the solve) are one graph.
 * **Draws.**  A draw captured in a graph would repeat its numbers at every
   replay.  Every draw of the step from the run's ``torch.Generator`` (the
   sweep, random starts) is made instead, before each replay, into a static
@@ -211,7 +214,8 @@ def _write_back(dst, src, fields) -> None:
 
 
 _GP_FIELDS = ("x", "y", "L", "alpha", "n_dev")
-_CACHE_FIELDS = ("Kinv", "Linv", "Kinv_q", "P", "ay", "u_ones", "base_n_dev")
+_CACHE_FIELDS = ("Kinv", "K", "Linv", "Kinv_q", "P", "ay", "u_ones",
+                 "base_n_dev")
 
 
 class BOStep:
@@ -275,16 +279,20 @@ class BOStep:
         _write_back(gp, gp2, _GP_FIELDS)
         _copy_buffers(gp.mean, gp2.mean)
 
-    def step(self, eager: bool = False) -> None:
+    def step(self, eager: bool = False, flush: Optional[bool] = None
+             ) -> None:
         """Run one iteration (replayed, or eagerly with ``eager``) and
-        advance the host counts."""
+        advance the host counts.  ``flush`` forces the deferred append's
+        flush on (its graph) or off; by default the host's counts decide."""
         gp = self.gp
         if gp.n >= gp.capacity:
             raise ValueError(f"GP is full (capacity {gp.capacity})")
         # the deferred append's flush by the host's counts (one append an
         # iteration), None for the other appends
-        flush = ((gp.n - self.cache.base_n) + 1 >= self.cache.P.shape[1]
-                 if self.deferred else None)
+        if not self.deferred:
+            flush = None
+        elif flush is None:
+            flush = (gp.n - self.cache.base_n) + 1 >= self.cache.P.shape[1]
         if eager:
             self._body(flush)
         else:

@@ -29,11 +29,18 @@ hyperparameter re-optimization via hp_period, boptimizer.hpp:163).
   with nothing read back from the card unless the run needs it (the
   exact append's finiteness flag, a stop criterion's decision).
 
-Not ported yet (ROADMAP.md queue 1): the "refined" and ``True``
-cached-append modes and ``cache_lite`` (item 4), the model families "spgp"
-and "iterative" and ``max_model_points`` with their ``model_options`` /
-``model_refit_period`` (item 6), and ``optimize_batch`` (needs
-acqui/qei.py, item 7).  They raise ``NotImplementedError``.  The
+* The model families (limbo's modelfun<...> genericity, bo_base.hpp:113):
+  ``model_type`` "gp" (exact, rank-1 appends, optionally through the K^{-1}
+  query cache and its append modes, or capped at ``max_model_points`` by
+  SparsifiedGP's density-based removal), "spgp" (FITC pseudo-inputs,
+  learned by ``models.spgp.SPGPHpOpt`` on the hp cadence) or "iterative"
+  (CG, no Cholesky, re-solved every ``model_refit_period`` iterations),
+  with ``model_options`` (spgp's ``m``; iterative's ``block``, ``cg_tol``,
+  ``cg_maxiter``).  ``optimize_jit`` runs the exact GP only, as the
+  reference's does.
+
+Not ported yet (ROADMAP.md queue 1): ``optimize_batch`` (needs
+acqui/qei.py, item 7), which raises ``NotImplementedError``.  The
 multi-objective and constrained loops (bo/multi.py, bo/cbo.py, with
 opt/nsga2.py and opt/constrained.py) are items 7 and 8.
 """
@@ -62,6 +69,10 @@ from limbo_tpu_torch.utils.sysinfo import make_res_dir
 
 class EvaluationError(Exception):
     """Raised on NaN/Inf observations (limbo bo_base.hpp:106,232-238)."""
+
+
+# the cached-append modes of models/gp.add_sample_cached
+_FAST_UPDATES = (False, True, "refined", "linv", "deferred")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -129,12 +140,15 @@ class BOptimizer:
     model/gp.hpp:637), UCB, ``default_acqui_optimizer()``,
     ``RandomSampling(10)`` and ``MaxIterations(190)``.  The K^{-1} query
     cache (``use_query_cache``) takes ``cache_fast_update`` False (two
-    triangular solves per append), "linv" (two triangle matvecs on a
-    maintained L^{-1}) or "deferred" ("linv" with the N x N rewrite
-    amortized into one product per ``cache_defer_m`` appends; constant-type
-    means only), an optional low-precision query mirror
-    (``cache_query_dtype``, e.g. torch.bfloat16) and an exact rebuild every
-    ``cache_refresh_period`` appends.
+    triangular solves per append), "refined" (u = K^{-1} k polished by one
+    refinement step against a maintained K), True (raw u = K^{-1} k,
+    drifting; pair it with a short refresh period), "linv" (two triangle
+    matvecs on a maintained L^{-1}) or "deferred" ("linv" with the N x N
+    rewrite amortized into one product per ``cache_defer_m`` appends;
+    constant-type means only), an optional low-precision query mirror
+    (``cache_query_dtype``, e.g. torch.bfloat16), ``cache_lite`` (deferred
+    only: no f32 K^{-1} master, the mirror is the only N x N query matrix)
+    and an exact rebuild every ``cache_refresh_period`` appends.
     """
 
     def __init__(self,
@@ -158,6 +172,8 @@ class BOptimizer:
                  cache_lite: bool = False,
                  max_model_points: Optional[int] = None,
                  model_type: str = "gp",
+                 model_options: Optional[dict] = None,
+                 model_refit_period: int = 1,
                  dtype=torch.float32,
                  device="cuda"):
         self.device = resolve_device(device)
@@ -165,20 +181,35 @@ class BOptimizer:
             raise ValueError("cache_lite requires cache_fast_update="
                              "'deferred' (lite flushes apply the deferred "
                              "pivot corrections to the mirror)")
-        if cache_lite:
-            raise _not_ported("cache_lite", "item 4")
-        if cache_fast_update is True or cache_fast_update == "refined":
-            raise _not_ported(f"cache_fast_update={cache_fast_update!r}",
-                              "item 4")
-        if cache_fast_update not in (False, "linv", "deferred"):
+        if cache_fast_update not in _FAST_UPDATES:
             raise ValueError(f"unknown cache_fast_update "
                              f"{cache_fast_update!r}")
         if model_type not in ("gp", "spgp", "iterative"):
             raise ValueError(f"unknown model_type {model_type!r}")
+        # exact-GP-only features: the query cache and the GP strategies of
+        # models/hp_opt.py need the Cholesky state that SPGP and
+        # IterativeGP do not carry; SPGP has its own SPGPHpOpt
         if model_type != "gp":
-            raise _not_ported(f"model_type={model_type!r}", "item 6")
-        if max_model_points is not None:
-            raise _not_ported("max_model_points (SparsifiedGP)", "item 6")
+            if use_query_cache:
+                raise ValueError(
+                    f"use_query_cache requires model_type='gp' "
+                    f"(got {model_type!r}: no Cholesky factor to cache)")
+            if hp_opt is not None:
+                from limbo_tpu_torch.models.spgp import SPGPHpOpt
+                if not (model_type == "spgp"
+                        and isinstance(hp_opt, SPGPHpOpt)):
+                    raise ValueError(
+                        f"hp_opt for model_type={model_type!r} must be a "
+                        f"models.spgp.SPGPHpOpt (spgp only); the GP "
+                        f"strategies in models/hp_opt.py need the exact-GP "
+                        f"Cholesky state")
+            elif hp_period > 0:
+                raise ValueError(
+                    f"hp_period > 0 without hp_opt does nothing for "
+                    f"model_type={model_type!r}")
+            if max_model_points is not None:
+                raise ValueError(
+                    "max_model_points (SparsifiedGP) requires model_type='gp'")
         self.kernel = kernel
         self.mean = mean
         self.acqui = acqui if acqui is not None else UCB()
@@ -197,7 +228,11 @@ class BOptimizer:
         self.cache_refresh_period = cache_refresh_period
         self.cache_query_dtype = cache_query_dtype
         self.cache_defer_m = cache_defer_m
+        self.cache_lite = cache_lite
+        self.max_model_points = max_model_points
         self.model_type = model_type
+        self.model_options = dict(model_options or {})
+        self.model_refit_period = model_refit_period
         self.dtype = dtype
         self.res_dir = (make_res_dir(res_base_dir)
                         if (stats_enabled and res_base_dir is not None
@@ -212,6 +247,41 @@ class BOptimizer:
         mean = (self.mean if self.mean is not None
                 else DataMean.create(dim_out=dim_out, **kw))
         return gp_mod.empty(kernel, mean, dim_in, dim_out, capacity, **kw)
+
+    def _make_model(self, dim_in: int, dim_out: int, capacity: int,
+                    generator):
+        """The empty model of ``model_type`` (limbo_tpu/bo/optimizer.py:
+        245-265); spgp's pseudo-inputs are drawn from ``generator``."""
+        if self.model_type == "gp":
+            return self._make_gp(dim_in, dim_out, capacity)
+        kw = dict(device=self.device, dtype=self.dtype)
+        kernel = (self.kernel if self.kernel is not None
+                  else MaternFiveHalves.create(**kw))
+        mean = (self.mean if self.mean is not None
+                else DataMean.create(dim_out=dim_out, **kw))
+        opts = self.model_options
+        if self.model_type == "spgp":
+            from limbo_tpu_torch.models import spgp
+
+            return spgp.empty(kernel, mean, dim_in, dim_out,
+                              m=opts.get("m", 16), capacity=capacity,
+                              generator=generator, **kw)
+        from limbo_tpu_torch.models import iterative
+
+        return iterative.empty(
+            kernel, mean, dim_in, dim_out, capacity=capacity,
+            block=opts.get("block", 2048), cg_tol=opts.get("cg_tol", 1e-5),
+            cg_maxiter=opts.get("cg_maxiter", 256), **kw)
+
+    def _refit_model(self, model):
+        """Full re-solve for models whose appends leave them stale
+        (IterativeGP's CG alpha); the others are consistent after an
+        append."""
+        if self.model_type == "iterative":
+            from limbo_tpu_torch.models import iterative
+
+            return iterative.refit(model)
+        return model
 
     def _max_iterations(self) -> int:
         for s in self.stop:
@@ -253,16 +323,22 @@ class BOptimizer:
         gen = self._generator(generator)
         self._aggregator = aggregator
         if reset or state is None:
-            gp = self._make_gp(dim_in, dim_out, self._capacity())
+            gp = self._make_model(dim_in, dim_out, self._capacity(), gen)
             state = BOState(gp=gp, generator=gen, aggregator=aggregator)
             # ---- init design (bo_base.hpp:249, init/*.hpp) ----
             X0 = self.init(gen, dim_in, dtype=self.dtype).cpu().numpy()
             for x in X0:
                 state.gp = self._add(state.gp, x, self._checked(f(x), x))
+            state.gp = self._refit_model(state.gp)
         else:
             state.iteration = 0  # current-run counter resets; total continues
             need = self._capacity(extra=state.gp.n)
             if need > state.gp.capacity:
+                if self.model_type != "gp":
+                    raise NotImplementedError(
+                        f"resume past capacity needs gp_mod.grow, which is "
+                        f"exact-GP only (model_type={self.model_type!r}); "
+                        f"restart with a larger MaxIterations budget instead")
                 state.gp = gp_mod.grow(state.gp, need)
                 state.cache = None     # rebuilt below at the new capacity
         if self.use_query_cache and state.cache is None:
@@ -312,7 +388,13 @@ class BOptimizer:
     def _ingest(self, state: BOState, x: np.ndarray, y: np.ndarray) -> None:
         """Add one (x, y) observation and do all per-iteration bookkeeping:
         model/cache update by mode, counters, hp-opt cadence, stats."""
-        if self.use_query_cache:
+        if self.model_type != "gp":
+            state.gp = self._add(state.gp, x, y)
+            if (self.model_refit_period > 0 and
+                    (state.total_iterations + 1)
+                    % self.model_refit_period == 0):
+                state.gp = self._refit_model(state.gp)
+        elif self.use_query_cache:
             state.gp, state.cache = gp_mod.add_sample_cached(
                 state.gp, state.cache, self._tensor(x), self._tensor(y),
                 fast_update=self.cache_fast_update)
@@ -321,6 +403,8 @@ class BOptimizer:
                     % self.cache_refresh_period == 0):
                 state.gp = gp_mod.recompute(state.gp)
                 state.cache = self._build_cache(state.gp)
+        elif self.max_model_points is not None:
+            state.gp = self._add_sparse(state.gp, x, y)
         else:
             state.gp = self._add(state.gp, x, y)
         state.last_sample = np.asarray(x)
@@ -350,7 +434,7 @@ class BOptimizer:
         """
         gen = self._generator(generator)
         self._aggregator = aggregator
-        gp = self._make_gp(dim_in, dim_out, self._capacity())
+        gp = self._make_model(dim_in, dim_out, self._capacity(), gen)
         state = BOState(gp=gp, generator=gen, aggregator=aggregator)
         state.pending_init = list(
             self.init(gen, dim_in, dtype=self.dtype).cpu().numpy())
@@ -376,8 +460,10 @@ class BOptimizer:
             # match optimize()'s init phase: plain adds, no iteration count
             state.pending_init.pop(0)
             state.gp = self._add(state.gp, x, y)
-            if not state.pending_init and self.use_query_cache:
-                state.cache = self._build_cache(state.gp)
+            if not state.pending_init:
+                state.gp = self._refit_model(state.gp)
+                if self.use_query_cache:
+                    state.cache = self._build_cache(state.gp)
             return state
         if self.use_query_cache and state.cache is None:
             state.cache = self._build_cache(state.gp)
@@ -394,11 +480,24 @@ class BOptimizer:
         return add_sample_any(gp, self._tensor(x), self._tensor(y))
 
     def _build_cache(self, gp):
+        """The cache for this mode (limbo_tpu/bo/optimizer.py:506-523): K
+        for "refined", Linv for "linv" and "deferred", lite as asked."""
         fast = self.cache_fast_update
         return gp_mod.QueryCache.build(
-            gp, with_Linv=fast in ("linv", "deferred"),
+            gp, with_K=fast == "refined",
+            with_Linv=fast in ("linv", "deferred"),
             qdtype=self.cache_query_dtype,
-            defer_m=self.cache_defer_m if fast == "deferred" else 0)
+            defer_m=self.cache_defer_m if fast == "deferred" else 0,
+            lite=self.cache_lite)
+
+    def _add_sparse(self, gp, x, y):
+        """The append of a GP capped at max_model_points (SparsifiedGP's:
+        re-sparsify and refit when over budget)."""
+        from limbo_tpu_torch.models import sparse_gp
+
+        sgp = sparse_gp.SparsifiedGP(gp=gp, max_points=self.max_model_points)
+        return sparse_gp.add_sample(sgp, self._tensor(x),
+                                    self._tensor(y)).gp
 
     @staticmethod
     def _checked(y, x) -> np.ndarray:

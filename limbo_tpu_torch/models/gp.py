@@ -31,8 +31,13 @@ their factorization is the blocked Cholesky with the panel-factor kernel,
 and their gradient runs the Cholesky pullback through the tri-inv panel
 kernel (ops/chol.py).
 
-Not ported yet: the cache's ``with_K`` / ``lite`` forms and the
-``"refined"`` update that needs ``with_K``.
+The K^{-1} cache (``QueryCache``) comes in the reference's forms: with the
+f32 master ``Kinv``, optionally the covariance ``K`` ("refined" appends), the
+inverse factor ``Linv`` ("linv" and "deferred" appends) and a low-precision
+query mirror; and "lite", the mirror alone beside ``Linv``, the form that
+holds the exact GP at n = 32k on one card.  A low-precision lite mirror is
+made from ``Linv`` panel by panel (``_mirror_from_linv``), at the build and
+at every deferred flush, so no f32 N x N K^{-1} is ever allocated.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ import torch
 
 from limbo_tpu_torch.kernels.base import effective_jitter
 from limbo_tpu_torch.means.means import prepare_mean
-from limbo_tpu_torch.ops.chol import cholesky, tri_inv
+from limbo_tpu_torch.ops.chol import cholesky, tri_inv, use_blocked_tri
 from limbo_tpu_torch.ops.mirror import mirror_mm
 from limbo_tpu_torch.ops.trimv import trimv
 from limbo_tpu_torch.utils.device import resolve_device
@@ -329,23 +334,58 @@ def _mirror_mm(ks: torch.Tensor, Kq: torch.Tensor) -> torch.Tensor:
     return mirror_mm(ks, Kq)
 
 
+def _panel_width(N: int, cap: int = 1024) -> int:
+    """Largest divisor of N not above cap: the panels of the mirror build
+    tile N exactly (limbo_tpu/models/gp.py:306-311)."""
+    return next(d for d in range(min(cap, N), 0, -1) if N % d == 0)
+
+
+def _mirror_from_linv(Linv: torch.Tensor, qdtype, out=None,
+                      cap: int = 1024) -> torch.Tensor:
+    """(Linv^T Linv) in qdtype, one column panel at a time
+    (limbo_tpu/models/gp.py:314-333): panel i is Linv^T Linv[:, cols_i] in
+    exact f32, written transposed into rows cols_i of the mirror (K^{-1} is
+    symmetric) and cast on the way, so no f32 (N, N) temporary exists.  The
+    rows of Linv above the panel's first column are zero (Linv is lower
+    triangular), so the product skips them.  ``out`` (N, N) in qdtype takes
+    the result in place (a deferred flush rewrites the cache's mirror);
+    ``cap`` bounds the panel width, which divides N."""
+    N = Linv.shape[0]
+    w = _panel_width(N, cap)
+    if out is None:
+        out = torch.empty((N, N), dtype=qdtype, device=Linv.device)
+    for c0 in range(0, N, w):
+        below = Linv[c0:]
+        out[c0:c0 + w].copy_((below.T @ below[:, c0:c0 + w]).T)
+    return out
+
+
+def _linv_solve(Linv: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """K^{-1} B = Linv^T (Linv B), two passes over Linv."""
+    return Linv.T @ (Linv @ B)
+
+
 @dataclass
 class QueryCache:
-    """Precomputed K^{-1} for matmul-only queries.
+    """Precomputed K^{-1} for matmul-only queries
+    (limbo_tpu/models/gp.py:336-401).
 
-    Kinv: the f32 master inverse.  Linv: the inverse Cholesky factor L^{-1}
-    (lower, padded identity), kept for the "linv" and "deferred" appends,
-    whose pivot u = Linv^T (Linv k) comes from two triangle matvecs.  Kinv_q:
-    an optional low-precision (bf16) mirror of Kinv, read only by the
-    variance quadratic form.  Deferred mode (defer_m > 0) also carries P,
-    the (N, m) pending scaled pivots, base_n (n at the last flush, a Python
-    int, with base_n_dev, the same count on the device, made from base_n
-    when not given), and ay = Kinv (y mask), u_ones = Kinv mask, from which
-    alpha is recovered for constant-type means.  See
-    limbo_tpu/models/gp.py:336-401.
+    Kinv: the f32 master inverse, None in the "lite" cache, whose mirror is
+    its only N x N query matrix.  K: optionally the masked training
+    covariance itself, for the "refined" append.  Linv: the inverse Cholesky
+    factor L^{-1} (lower, padded identity), kept for the "linv" and
+    "deferred" appends, whose pivot u = Linv^T (Linv k) comes from two
+    triangle matvecs.  Kinv_q: an optional low-precision (bf16) mirror of
+    Kinv, read only by the variance quadratic form (in a lite cache, the
+    mirror in the GP's dtype or a lower one).  Deferred mode (defer_m > 0)
+    also carries P, the (N, m) pending scaled pivots, base_n (n at the last
+    flush, a Python int, with base_n_dev, the same count on the device, made
+    from base_n when not given), and ay = Kinv (y mask), u_ones = Kinv mask,
+    from which alpha is recovered for constant-type means.
     """
 
     Kinv: Optional[torch.Tensor] = None
+    K: Optional[torch.Tensor] = None
     Linv: Optional[torch.Tensor] = None
     Kinv_q: Optional[torch.Tensor] = None
     P: Optional[torch.Tensor] = None
@@ -358,28 +398,69 @@ class QueryCache:
 
     def __post_init__(self):
         if self.base_n is not None and self.base_n_dev is None:
-            self.base_n_dev = _count(self.base_n, self.Kinv.device)
+            like = next(t for t in (self.P, self.Linv, self.Kinv, self.Kinv_q)
+                        if t is not None)
+            self.base_n_dev = _count(self.base_n, like.device)
 
     @classmethod
-    def build(cls, gp: GP, with_Linv: bool = False, qdtype=None,
-              defer_m: int = 0) -> "QueryCache":
-        """Linv = L^{-1} (the blocked inverse with its panel kernel on the
-        card from TRI_INV_MIN_N, the library solve elsewhere), then
-        Kinv = Linv^T Linv (one exact-f32 product)."""
-        Linv = tri_inv(gp.L)
-        Kinv = Linv.T @ Linv
+    def build(cls, gp: GP, block: int = 1024, with_K: bool = False,
+              with_Linv: bool = False, qdtype=None, defer_m: int = 0,
+              lite: bool = False) -> "QueryCache":
+        """Linv = L^{-1}, then Kinv = Linv^T Linv (one exact-f32 product).
+
+        Linv comes from the blocked inverse with its panel kernel on the
+        card from TRI_INV_MIN_N (ops/chol.py), elsewhere from the library
+        triangular solve against identity panels ``block`` wide (rounded
+        down to a divisor of N), so its workspace is N x block.  On the
+        blocked route a lite cache with a mirror below the GP's precision
+        never forms the f32 K^{-1}: the mirror comes from Linv panel by
+        panel and ay / u_ones from two passes over Linv
+        (limbo_tpu/models/gp.py:446-461).  ``with_K`` keeps the training
+        covariance (the gram_train kernel on the card); ``lite`` needs
+        ``with_Linv`` and ``defer_m`` > 0."""
+        if lite and not (defer_m > 0 and with_Linv):
+            raise ValueError("lite caches need with_Linv=True and "
+                             "defer_m > 0 (the mirror is updated via the "
+                             "maintained Linv's deferred pivots)")
+        N, dtype, dev = gp.capacity, gp.x.dtype, gp.x.device
+        K = gp.kernel.gram_train_masked(gp.x, gp.n) if with_K else None
         defer = {}
         if defer_m > 0:
             mask = gp.mask
             rhs = torch.cat([gp.y * mask[:, None], mask[:, None]], dim=1)
+            defer = dict(P=torch.zeros((N, defer_m), dtype=dtype, device=dev),
+                         base_n=gp.n, base_n_dev=gp.n_dev.clone())
+        blocked = use_blocked_tri(N, dev)
+        Linv = tri_inv(gp.L) if blocked else _tri_inv_panels(gp.L, block)
+        if lite and blocked and qdtype not in (None, dtype):
+            a = _linv_solve(Linv, rhs)
+            return cls(Linv=Linv, Kinv_q=_mirror_from_linv(Linv, qdtype),
+                       ay=a[:, :-1], u_ones=a[:, -1], **defer)
+        Kinv = Linv.T @ Linv
+        if defer_m > 0:
             a = Kinv @ rhs
-            defer = dict(P=torch.zeros((gp.capacity, defer_m),
-                                       dtype=gp.x.dtype, device=gp.x.device),
-                         base_n=gp.n, base_n_dev=gp.n_dev.clone(),
-                         ay=a[:, :-1], u_ones=a[:, -1])
-        return cls(Kinv=Kinv, Linv=Linv if with_Linv else None,
+            defer.update(ay=a[:, :-1], u_ones=a[:, -1])
+        if lite:
+            return cls(Linv=Linv, Kinv_q=Kinv.to(qdtype) if qdtype is not None
+                       else Kinv, **defer)
+        return cls(Kinv=Kinv, K=K, Linv=Linv if with_Linv else None,
                    Kinv_q=Kinv.to(qdtype) if qdtype is not None else None,
                    **defer)
+
+
+def _tri_inv_panels(L: torch.Tensor, block: int) -> torch.Tensor:
+    """L^{-1} by the library triangular solve against identity column
+    panels of width ``_panel_width(N, block)``, written into one (N, N)
+    tensor (limbo_tpu/models/gp.py:465-480)."""
+    N = L.shape[0]
+    w = _panel_width(N, block)
+    Linv = torch.zeros_like(L)
+    for c0 in range(0, N, w):
+        cols = torch.zeros((N - c0, w), dtype=L.dtype, device=L.device)
+        cols[:w].fill_diagonal_(1.0)
+        Linv[c0:, c0:c0 + w] = torch.linalg.solve_triangular(
+            L[c0:, c0:], cols, upper=False)
+    return Linv
 
 
 class _SymQuadDiag(torch.autograd.Function):
@@ -517,15 +598,22 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
     inverse is Kinv' = Kinv + (u - e_i)(u - e_i)^T / s - e_i e_i^T.  The
     pivot u comes from:
       * ``fast_update=False``   - two triangular solves on L;
+      * ``fast_update="refined"`` - u = Kinv k polished by one
+        iterative-refinement step against the cached K
+        (QueryCache.build(with_K=True)): matvecs only;
       * ``fast_update="linv"``  - two triangle matvecs on the maintained
         Linv (QueryCache.build(with_Linv=True)), whose bordered row
         -(u/d)^T is then free;
+      * ``fast_update=True``    - raw u = Kinv k, fastest and drifting with
+        every append (pair it with a short refresh period); refused on a
+        cache with Linv, whose solve-grade rows it would corrupt;
       * ``fast_update="deferred"`` - as "linv", with the N x N rewrite
         amortized into one GEMM per defer_m appends (_add_sample_deferred).
-    s is clipped to [max(diag_add, eps_eff * kappa), kappa], the Schur
-    floor that keeps every bordered update positive definite
-    (limbo_tpu/models/gp.py:676-684).  Kinv, its mirror and row i of x, y,
-    L and Linv are updated in place.  ``flush`` (deferred mode only) forces
+    With a matvec pivot the Cholesky row is l = L^T u.  s is clipped to
+    [max(diag_add, eps_eff * kappa), kappa], the Schur floor that keeps
+    every bordered update positive definite (limbo_tpu/models/gp.py:
+    676-684).  Kinv, its mirror, K's row and column i and row i of x, y, L
+    and Linv are updated in place.  ``flush`` (deferred mode only) forces
     the flush of the pending pivots on or off; by default it happens when P
     is full, by the host counts.  A captured iteration is captured once
     with and once without it (bo/graph.py).
@@ -551,18 +639,35 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
             "this cache was built with defer_m > 0; immediate-update modes "
             "would leave its pending-pivot state inconsistent - use "
             "fast_update='deferred' or rebuild the cache without defer_m")
+    l = None
     if fast_update == "linv":
         if cache.Linv is None:
             raise ValueError("linv updates need QueryCache.build("
                              "with_Linv=True)")
         l = trimv(cache.Linv, k_vec) * mask
         u = trimv(cache.Linv, l, transpose=True) * mask
+    elif fast_update == "refined":
+        if cache.K is None:
+            raise ValueError("refined updates need QueryCache.build("
+                             "with_K=True)")
+        u = (cache.Kinv @ k_vec) * mask
+        r = k_vec - cache.K @ u
+        u = (u + cache.Kinv @ r) * mask
+    elif fast_update is True:
+        if cache.Linv is not None:
+            raise ValueError(
+                "fast_update=True would write drift-prone pivots into the "
+                "maintained Linv; use fast_update='linv' with this cache, "
+                "or build it without with_Linv")
+        u = (cache.Kinv @ k_vec) * mask
     elif fast_update is False:
         l = _solve_vec(gp.L, k_vec)
         u = _solve_vec(gp.L.T, l, upper=True) * mask
     else:
-        raise ValueError(f"fast_update={fast_update!r} is not ported; use "
-                         "False, 'linv' or 'deferred'")
+        raise ValueError(f"unknown fast_update {fast_update!r}")
+    if l is None:
+        # u = L^{-T} L^{-1} k, so l = L^{-1} k = L^T u (one matvec)
+        l = gp.L.T @ u
     s = torch.clamp(kappa - torch.dot(k_vec, u), s_floor, kappa)
     v = u - e_i
     Kinv = cache.Kinv
@@ -572,6 +677,12 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
     _put_row(gp.L, gp.n_dev, l * mask + d * e_i)
     if cache.Linv is not None:
         _put_row(cache.Linv, gp.n_dev, -(u / d) * mask + (1.0 / d) * e_i)
+    if cache.K is not None:
+        # K's row and column i were e_i (the padded identity); the border
+        # is k (masked, so 0 at i) + kappa e_i
+        border = k_vec + kappa * e_i
+        _put_row(cache.K, gp.n_dev, border)
+        cache.K.index_copy_(1, gp.n_dev.reshape(1), border[:, None])
     _put_row(gp.x, gp.n_dev, x_new)
     _put_row(gp.y, gp.n_dev, y_new)
     gp2 = gp.replace(n=i + 1, n_dev=gp.n_dev + 1)
@@ -592,7 +703,10 @@ def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
     The same pivot as "linv"; the correction vv^T/s - e_i e_i^T is kept as
     the scaled column v/sqrt(s) in P and applied at query time, and flushed
     into Kinv and its mirror with one (N, m) @ (m, N) product when P is
-    full (or as ``flush`` says).  alpha comes from the exact bordered
+    full (or as ``flush`` says).  A lite cache flushes into its mirror: in
+    place when the mirror has the GP's dtype, else by rebuilding it from
+    the maintained Linv (_mirror_from_linv), with ay and u_ones re-derived
+    from Linv.  Between flushes alpha comes from the exact bordered
     recurrences of ay and u_ones (constant-type means only).
     """
     if cache.Linv is None or cache.P is None:
@@ -637,12 +751,28 @@ def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
         # outlives a flush window
         idx = torch.arange(gp.capacity, device=P.device)
         pend = ((idx >= cache.base_n_dev) & (idx <= i_dev)).to(P.dtype)
+        rhs = torch.cat([ym, mask2[:, None]], dim=1)
         Kinv = cache.Kinv
-        Kinv.addmm_(P, P.T)
-        Kinv.diagonal().sub_(pend)
-        a = Kinv @ torch.cat([ym, mask2[:, None]], dim=1)
-        if cache.Kinv_q is not None:
-            cache.Kinv_q.copy_(Kinv)
+        if Kinv is not None:
+            Kinv.addmm_(P, P.T)
+            Kinv.diagonal().sub_(pend)
+            a = Kinv @ rhs
+            if cache.Kinv_q is not None:
+                cache.Kinv_q.copy_(Kinv)
+        else:
+            # lite: the mirror is the only N x N query matrix
+            mirror = cache.Kinv_q
+            if mirror.dtype == P.dtype:
+                mirror.addmm_(P, P.T)
+                mirror.diagonal().sub_(pend)
+            else:
+                # a low-precision mirror absorbs an in-place rank-m add
+                # (the correction is below its rounding step, which left
+                # the variance off by O(prior) in the reference's
+                # measurement, limbo_tpu/models/gp.py:849-857): rebuild it
+                # from the maintained Linv, panel by panel, in place
+                _mirror_from_linv(cache.Linv, mirror.dtype, out=mirror)
+            a = _linv_solve(cache.Linv, rhs)
         P.zero_()
         cache = cache.replace(base_n=i + 1, base_n_dev=i_dev + 1,
                               ay=a[:, :-1], u_ones=a[:, -1])

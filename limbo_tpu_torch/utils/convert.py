@@ -4,7 +4,7 @@ The input is a dict of numpy arrays keyed by the pytree paths that
 ``jax.tree_util.tree_flatten_with_path`` yields for the JAX package's ``GP``
 and ``QueryCache`` (what its serializer writes): ``.kernel/.log_ell``,
 ``.mean/.value``, ``.x``, ``.y``, ``.n``, ``.L``, ``.alpha`` for a GP, and
-``.Kinv``, ``.Linv``, ``.Kinv_q``, ``.P``, ``.base_n``, ``.ay``,
+``.Kinv``, ``.K``, ``.Linv``, ``.Kinv_q``, ``.P``, ``.base_n``, ``.ay``,
 ``.u_ones`` for a cache.  Integer scalars (``n``, ``base_n``) come back as
 Python ints; bf16 arrays (the query mirror) keep their dtype.  A GP after
 hyperparameter learning carries its learned parameters in the same
@@ -27,7 +27,7 @@ from limbo_tpu_torch.models.gp import GP, QueryCache
 from limbo_tpu_torch.utils.device import resolve_device
 
 _GP_ARRAYS = ("x", "y", "L", "alpha")
-_CACHE_ARRAYS = ("Kinv", "Linv", "Kinv_q", "P", "ay", "u_ones")
+_CACHE_ARRAYS = ("Kinv", "K", "Linv", "Kinv_q", "P", "ay", "u_ones")
 
 
 def to_tensor(a, device) -> torch.Tensor:

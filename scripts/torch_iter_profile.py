@@ -23,10 +23,15 @@ With ``--hp`` it profiles, instead, ``--trace-iters`` f32 LML + gradient
 evaluations of chip_smoke.py's hp path (n = 16,384, capacity 16896, after
 the blocked-Cholesky fit), the unit of work of its hyperparameter learning.
 
+With ``--lite`` the iteration is chip_smoke.py's lite path's instead
+(scripts/large_n_bench.py --lite 32768: n = 32,768, capacity 33,280, the
+hp path's kernel, the lite cache: Linv and a bf16 mirror, defer_m = 256),
+eager or, with ``--graph``, captured.
+
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 scripts/torch_iter_profile.py [--iters 10] [--trace-iters 3]
-        [--trace out/trace.json] [--graph | --hp]
+        [--trace out/trace.json] [--graph | --hp] [--lite]
 """
 
 from __future__ import annotations
@@ -94,7 +99,7 @@ def trace(step, reps: int, what: str, out) -> None:
 
 
 def profile_graph(path, gp, cache, args, card) -> int:
-    """The main path's iteration captured: replay times, then a trace."""
+    """The path's iteration captured: replay times, then a trace."""
     from limbo_tpu_torch.bo.graph import BOStep
 
     step = BOStep(gp, cache, lambda model, it: path.propose(model, path.gen),
@@ -134,6 +139,8 @@ def main() -> int:
                     help="profile LML + gradient evaluations of the hp path")
     ap.add_argument("--graph", action="store_true",
                     help="profile the captured iteration (bo/graph.BOStep)")
+    ap.add_argument("--lite", action="store_true",
+                    help="the lite path's iteration at n = 32,768")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_iter_profile: CUDA is not available", file=sys.stderr)
@@ -159,9 +166,20 @@ def main() -> int:
               args.trace)
         print(f"card: {card}")
         return 0
-    path = cs.MainPath(dev, gen)
-    gp = path.fit()
-    cache = path.build(gp)
+    if args.lite:
+        from limbo_tpu_torch.models import gp as gp_mod
+
+        path = cs.MainPath(dev, gen, n=cs.LITE_N, capacity=cs.LITE_CAPACITY,
+                           ell=cs.HP_ELL, noise=cs.HP_NOISE,
+                           y_noise=cs.HP_Y_NOISE)
+        gp = path.fit()
+        cache = gp_mod.QueryCache.build(gp, with_Linv=True,
+                                        qdtype=torch.bfloat16,
+                                        defer_m=cs.LITE_DEFER_M, lite=True)
+    else:
+        path = cs.MainPath(dev, gen)
+        gp = path.fit()
+        cache = path.build(gp)
     if args.graph:
         return profile_graph(path, gp, cache, args, card)
     gp, cache = path.iterate(gp, cache)                       # warm-up

@@ -9,7 +9,10 @@ writer's lines, and the GP accessors.  No test runs the reference's
 ``optimize`` loop or ``optimize_jit`` (tests/test_torch_graph.py runs the
 port's).  The port's own loop is run on the CPU at a small size:
 best-so-far, resume, NaN guards, ask/tell against optimize, the cached
-append modes, and every option not ported yet.
+append modes, and the options' argument checks.  Every option ported in
+the last slice (the "refined", True and lite cache appends, the spgp and
+iterative families, max_model_points) takes one ask -> tell step against
+the reference's.
 """
 
 import os
@@ -37,6 +40,7 @@ from limbo_tpu_torch import acqui, kernels, means
 from limbo_tpu_torch.bo import (BOptimizer, BOptimizerHPOpt, BOState,
                                 EvaluationError, MaxIterations,
                                 MaxPredictedValue, RandomSampling, stats)
+from limbo_tpu_torch import models as tbo_models
 from limbo_tpu_torch.models import gp as tgp
 from limbo_tpu_torch.opt import RandomRestarts, Rprop
 from limbo_tpu_torch.utils import convert
@@ -358,19 +362,98 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(cache_fast_update="refined"), NotImplementedError),
-    (dict(cache_fast_update=True), NotImplementedError),
-    (dict(cache_fast_update="deferred", cache_lite=True), NotImplementedError),
     (dict(cache_lite=True), ValueError),
     (dict(cache_fast_update="fast"), ValueError),
-    (dict(model_type="spgp"), NotImplementedError),
-    (dict(model_type="iterative"), NotImplementedError),
-    (dict(model_type="sparse"), ValueError),
-    (dict(max_model_points=50), NotImplementedError)])
+    (dict(model_type="sparse"), ValueError)])
 def test_options_not_ported_raise(kw, exc):
     with pytest.raises(exc, match="queue 1" if exc is NotImplementedError
                        else None):
         BOptimizer(device="cpu", **kw)
+
+
+_NEW_OPTIONS = {
+    "refined": dict(use_query_cache=True, cache_fast_update="refined"),
+    "raw": dict(use_query_cache=True, cache_fast_update=True),
+    "lite": dict(use_query_cache=True, cache_fast_update="deferred",
+                 cache_lite=True, cache_defer_m=1),
+    "spgp": dict(model_type="spgp", model_options=dict(m=4), hp_period=1),
+    "iterative": dict(model_type="iterative",
+                      model_options=dict(block=128, cg_tol=1e-9)),
+    "sparse": dict(max_model_points=5),
+}
+
+
+@pytest.mark.parametrize("name", list(_NEW_OPTIONS))
+def test_new_option_step_equals_reference(name):
+    """One ask -> tell step of each option the port's BOptimizer gained
+    (the query cache's "refined", True and lite appends, the spgp and
+    iterative families, max_model_points) from the reference's 6 init
+    points with its sweep injected (and, for spgp, its pseudo-inputs and
+    an SPGPHpOpt(Rprop(3)) after the step): the proposal, its acquisition
+    value and predicted mean, then the model's state (and the cache's)
+    field by field, f64 to 1e-9 (a bf16 mirror to one bf16 step; the
+    iterative GP's CG stops at 1e-9 in both)."""
+    kw = dict(_NEW_OPTIONS[name])
+    jkw, tkw = dict(kw), dict(kw)
+    if name == "lite":
+        jkw["cache_query_dtype"] = jnp.bfloat16
+        tkw["cache_query_dtype"] = torch.bfloat16
+    if name == "spgp":
+        from limbo_tpu.models.spgp import SPGPHpOpt as JSPGPHpOpt
+        jkw["hp_opt"] = JSPGPHpOpt(optimizer=JRprop(iterations=3))
+        tkw["hp_opt"] = tbo_models.SPGPHpOpt(optimizer=Rprop(iterations=3))
+    jopt = JRandomRestarts(sub=JRprop(iterations=3), repeats=2,
+                           sweep_samples=16)
+    jbo = JBOptimizer(acqui_optimizer=jopt, init=JRandomSampling(6),
+                      stop=(JMaxIterations(3),), dtype=jnp.float64, **jkw)
+    js = jbo.init_state(D, key=KEY)
+    xb0 = np.array(js.gp.xb) if name == "spgp" else None
+    X0 = [np.asarray(x) for x in js.pending_init]
+    for x in X0:
+        js = jbo.tell(js, x, quad(x))
+    _, k_prop = jax.random.split(js.key)
+    sweep = jax.random.uniform(jax.random.split(k_prop, 3)[2], (16, D))
+    jx = jbo.ask(js)
+    js = jbo.tell(js, jx, quad(jx))
+
+    bo = _small(acqui_optimizer=_FromSweep(
+        RandomRestarts(sub=Rprop(iterations=3), repeats=2, sweep_samples=16),
+        sweep), init=RandomSampling(6), stop=(MaxIterations(3),), **tkw)
+    st = bo.init_state(D, generator=torch.Generator().manual_seed(0))
+    if name == "spgp":
+        assert st.gp.xb.shape == (4, D)
+        st.gp = st.gp.replace(xb=torch.from_numpy(xb0))
+    for x in X0:
+        st = bo.tell(st, x, quad(x))
+    tx = bo.ask(st)
+    np.testing.assert_allclose(tx, np.asarray(jx), **TOL)
+    np.testing.assert_allclose(st.last_acqui_value, js.last_acqui_value,
+                               **TOL)
+    np.testing.assert_allclose(st.last_prediction, js.last_prediction, **TOL)
+    st = bo.tell(st, tx, quad(tx))
+    assert st.gp.n == int(js.gp.n) == (5 if name == "sparse" else 7)
+    assert type(st.gp).__name__ == type(js.gp).__name__
+    # the posterior's state, field by field (no query program to compile)
+    names = {"spgp": ("x", "y", "xb"), "iterative": ("x", "y", "alpha")}
+    for f in names.get(name, ("x", "y", "L", "alpha")):
+        np.testing.assert_allclose(getattr(st.gp, f).numpy(),
+                                   np.asarray(getattr(js.gp, f)), **TOL)
+    if name == "spgp":
+        np.testing.assert_allclose(st.gp.kernel.params.numpy(),
+                                   np.asarray(js.gp.kernel.params), **TOL)
+    if kw.get("use_query_cache"):
+        assert (st.cache.Kinv is None) == (name == "lite")
+        for f in ("Kinv", "K", "Linv", "ay", "u_ones"):
+            a, b = getattr(st.cache, f), getattr(js.cache, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+        if name == "lite":
+            # the bf16 mirror: the same products rounded, one bf16 step
+            a = st.cache.Kinv_q.double().numpy()
+            b = np.asarray(js.cache.Kinv_q.astype(jnp.float64))
+            assert np.all(np.abs(a - b) <= 2.0 ** -7 * np.abs(b) + 1e-12)
+    assert st.best_value == js.best_value
 
 
 def test_loops_not_ported_raise():

@@ -677,3 +677,95 @@ def test_capture_survives_a_garbage_graph(dev):
         assert step.graphs.graphs is not None and step.gp.n == 23
         del step                          # its graph now waits in a cycle
     assert gc.isenabled()
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the lite mirror, its captured flush, the CG solve
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N", [1000, 4100, 1283])
+def test_mirror_from_linv_ragged_on_the_card(dev, N):
+    """The panel-by-panel bf16 mirror (one panel at 1000, five of 820 at
+    4100, 1283 of width 1 at a prime N) against the plain f32 product cast
+    once, within one bf16 step, 2^-7 relative (the panels skip Linv's zero
+    rows, so their f32 sums may round to the neighbouring bf16 value),
+    written in place."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    A = torch.rand((N, N), generator=g, device=dev) / N
+    Linv = torch.tril(A) + torch.eye(N, device=dev)
+    plain = (Linv.T @ Linv).to(torch.bfloat16).double()
+    out = torch.full((N, N), float("nan"), dtype=torch.bfloat16, device=dev)
+    got = gp_mod._mirror_from_linv(Linv, torch.bfloat16, out=out)
+    assert got is out
+    assert bool((got.double() - plain).abs().le(
+        2.0 ** -7 * plain.abs()).all())
+
+
+def test_lite_flush_captured_equals_eager(dev):
+    """A lite cache (Linv, bf16 mirror from Linv, defer_m = 4) at capacity
+    4096: eight iterations (two flushes, each rebuilding the mirror panel
+    by panel inside the flush graph, the last at the last iteration)
+    captured on one copy and eager on the other leave the same bits
+    everywhere, and the mirror is the one rebuilt from the final Linv."""
+    from limbo_tpu_torch.bo.graph import BOStep
+
+    steps = []
+    for eager in (False, True):
+        gp, _ = _graph_state(dev)
+        cache = gp_mod.QueryCache.build(gp, with_Linv=True,
+                                        qdtype=torch.bfloat16, defer_m=4,
+                                        lite=True)
+        assert cache.Kinv is None
+        gen = torch.Generator(device=dev).manual_seed(9)
+        step = BOStep(gp, cache, _graph_propose(gen), _graph_objective, gen,
+                      fast_update="deferred")
+        for _ in range(8):
+            step.step(eager=eager)
+        steps.append(step)
+    assert steps[0].graphs.graphs is not None
+    for name in ("x", "y", "L", "alpha", "n_dev"):
+        assert torch.equal(_bits(getattr(steps[0].gp, name)),
+                           _bits(getattr(steps[1].gp, name))), name
+    for name in ("Linv", "Kinv_q", "P", "ay", "u_ones", "base_n_dev"):
+        assert torch.equal(_bits(getattr(steps[0].cache, name)),
+                           _bits(getattr(steps[1].cache, name))), name
+    c = steps[0].cache
+    assert c.Kinv is None and c.base_n == steps[0].gp.n == 4008
+    mirror = gp_mod._mirror_from_linv(c.Linv, torch.bfloat16)
+    assert torch.equal(_bits(mirror), _bits(c.Kinv_q))
+
+
+def test_cg_solve_on_the_card_against_f64(dev):
+    """cg_solve over the blocked kernel matvec at n = 4096 (block 2048: the
+    gram kernel on every row block), four right-hand sides: converged, its
+    f64 residual within 1e-4 |b|, and its gradient in B (one more CG solve)
+    against K^-1 w in f64 to 1e-3."""
+    from limbo_tpu_torch.kernels import SquaredExpARD
+    from limbo_tpu_torch.models import iterative
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    n = 4096
+    X = torch.rand((n, 8), generator=g, device=dev)
+    k = SquaredExpARD.create(dim=8, noise=0.1, device=dev).replace(
+        log_ell=torch.full((8,), -1.0, device=dev))
+    mask = torch.ones(n, device=dev)
+    B = torch.randn((n, 4), generator=g, device=dev).requires_grad_(True)
+    w = torch.randn((n, 4), generator=g, device=dev)
+
+    def mv(V):
+        return iterative.blocked_kernel_matvec(k, X, mask, k.noise, V, 2048)
+
+    before = _cuda.LAUNCHES["gram"]
+    Xs, r = iterative.cg_solve(mv, B, 1e-6, 500)
+    assert _cuda.LAUNCHES["gram"] - before >= 2
+    assert bool((r <= 1e-6 * B.detach().norm(dim=0)).all())
+    k64 = copy.deepcopy(k).to(torch.float64)
+    K = k64.gram(X.double(), X.double())
+    K.diagonal().add_(float(k.noise) + 1e-8)
+    res = K @ Xs.detach().double() - B.detach().double()
+    assert bool((res.norm(dim=0) <= 1e-4 * B.detach().double().norm(dim=0)
+                 ).all())
+    (gB,) = torch.autograd.grad(torch.sum(w * Xs), B)
+    want = torch.linalg.solve(K, w.double())
+    assert float((gB.double() - want).abs().max()) <= 1e-3 * float(
+        want.abs().max())
