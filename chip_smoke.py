@@ -2231,18 +2231,107 @@ def lite_path(dev, gen):
         {"lite": launches, "lite_flush": launches_flush}, kern, (X, Y)
 
 
+def modes_held(gp_mod, gp, cache, g_t, cache_t, x) -> dict:
+    """Checks of the modes path's state that hold at any conditioning.
+    K after the refined appends against gram_train_masked of the stored
+    points: the build's block is gram_train's and each border gram's, so
+    within the sum of the two kernels' tolerances against their plain
+    version, 2 (2e-6 + 2e-5 |K|).  The library's pivots of one more append
+    at x (models/gp.py _pivot) against their formula in f64 on the same
+    f32 operands, within one f32 matvec's rounding (sqrt(N) 2^-24 |A||v|)
+    and one rounding of the result: True's u = Kinv k on the True run's
+    state; on the refined run's, u0 + Kinv r, with u0 = Kinv k and
+    r = k - K u0 computed in f32 by the refined route's own operations (so
+    the same bits).  Controls that must miss: K with the last border
+    column left unwritten (e_i, as before that append), the refined pivot
+    computed with that K, and the raw pivot u0 (the refinement step left
+    out) against the refined limit."""
+    N, n = gp.capacity, gp.n
+    gam = N ** 0.5 * F32_U
+    fails, out = [], {}
+
+    def held(key, name, got, want, tol, what):
+        try:
+            out[key] = check_close(f"modes path: {name}", got, want, tol,
+                                   what)
+        except AssertionError as e:
+            fails.append(str(e))
+        e = (got.double() - want).abs()
+        out[f"{key}_in_limit"] = float(torch.where(e == 0, 0.0,
+                                                   e / tol).max())
+
+    def missed(got, want, tol) -> int:
+        return int((~((got.double() - want).abs() <= tol)).sum())
+
+    Kt = gp.kernel.gram_train_masked(gp.x, gp.n).double()
+    tol_K = 2 * (2e-6 + 2e-5 * Kt.abs())
+    held("K", "K after the appends vs gram_train_masked of the stored "
+         "points", cache.K, Kt, tol_K, "2 (2e-6 + 2e-5 |gram_train|)")
+    K_ctl = cache.K.clone()
+    K_ctl[:, n - 1] = 0.0
+    K_ctl[n - 1, n - 1] = 1.0
+    out["control_K_missed"] = missed(K_ctl, Kt, tol_K)
+    del Kt, tol_K
+
+    k_t = g_t.kernel.gram(x, g_t.x)[0] * g_t.mask
+    u_t = gp_mod._pivot(g_t, cache_t, k_t, True)[0]
+    Ki = cache_t.Kinv.double()
+    U = (Ki @ k_t.double()) * g_t.mask.double()
+    held("pivot_true", "True's pivot vs Kinv k in f64 on its f32 operands",
+         u_t, U, gam * (Ki.abs() @ k_t.double().abs()) + F32_U * U.abs(),
+         "sqrt(N) 2^-24 |Kinv||k| + 2^-24 |u|")
+    del Ki, U
+
+    kv = gp.kernel.gram(x, gp.x)[0] * gp.mask
+    u0 = gp_mod._pivot(gp, cache, kv, True)[0]
+    # the residual in f32, the refined route's own operations on the same
+    # operands (so the same bits), then its second step in f64
+    r = (kv - cache.K @ u0).double()
+    u1 = gp_mod._pivot(gp, cache, kv, "refined")[0]
+    u1c = gp_mod._pivot(gp, cache.replace(K=K_ctl), kv, "refined")[0]
+    del K_ctl
+    Ki = cache.Kinv.double()
+    U1 = (u0.double() + Ki @ r) * gp.mask.double()
+    tol1 = gam * (Ki.abs_() @ r.abs()) + F32_U * U1.abs()
+    del Ki
+    held("pivot_refined", "the refined pivot vs u0 + Kinv r in f64, u0 = "
+         "Kinv k and r = k - K u0 its f32 operands", u1, U1, tol1,
+         "sqrt(N) 2^-24 |Kinv||r| + 2^-24 |u|")
+    out["control_pivot_missed"] = missed(u1c, U1, tol1)
+    out["control_raw_missed"] = missed(u0, U1, tol1)
+    log(f"  in units of their limits: K {out['K_in_limit']:.3g}, True's "
+        f"pivot {out['pivot_true_in_limit']:.3g}, the refined pivot "
+        f"{out['pivot_refined_in_limit']:.3g}")
+    log(f"  controls: K with column {n - 1} unwritten misses its limit in "
+        f"{out['control_K_missed']} entries, the refined pivot from that K "
+        f"in {out['control_pivot_missed']}, the raw pivot in "
+        f"{out['control_raw_missed']} (of {n})")
+    if not out["control_K_missed"]:
+        fails.append("K with an unwritten border column passes the K check")
+    if not out["control_pivot_missed"]:
+        fails.append("the refined pivot from a K with an unwritten border "
+                     "column passes the pivot check")
+    if not out["control_raw_missed"]:
+        fails.append("the raw pivot passes the refined pivot check")
+    if fails:
+        raise AssertionError(f"modes path: {'; '.join(fails)}")
+    return out
+
+
 def modes_path(dev, gen):
     """scripts/update_mode_bench.py's n = 10k (bench.py's workload: the
     main path's data, kernel and capacity 10240, a bf16 mirror): the cache
     built with K for "refined" and plainly for True; MODES_ITERS BO
     iterations in "refined" (the main path's acquisition), then the same
     proposals appended in True.  Held: finite states, the launch counts,
-    and MODES_GRAPH_ITERS refined iterations captured through BOStep
-    against eager ones, bit for bit.  Printed, not held: both posteriors
-    against f64, the refined pivot beside the raw K^-1 k and the solve
-    pivot against the f64 pivot, and both K^-1 against a rebuilt one.  At
-    this conditioning the matvec pivots lose the f32 posterior mean within
-    a few appends in the reference too (ROADMAP.md queue 3), so no limit
+    the checks of modes_held (K after the appends, both modes' pivots
+    against their own formula in f64, with controls), and
+    MODES_GRAPH_ITERS refined iterations captured through BOStep against
+    eager ones, bit for bit.  Printed, not held: both posteriors against
+    f64, the refined pivot beside the raw K^-1 k and the solve pivot
+    against the f64 pivot, and both K^-1 against a rebuilt one.  At this
+    conditioning the matvec pivots lose the f32 posterior mean within a
+    few appends in the reference too (ROADMAP.md queue 3), so no limit
     there would be sound."""
     from limbo_tpu_torch.bo.graph import BOStep
     from limbo_tpu_torch.models import gp as gp_mod
@@ -2308,15 +2397,12 @@ def modes_path(dev, gen):
             f"{errs['true_var']:.3e}")
         # the pivot of one more append, three ways, against f64
         x = torch.rand((1, DIM), generator=gen, device=dev)
+        held = modes_held(gp_mod, gp, cache, g_t, cache_t, x)
         n = gp.n
         mask = gp.mask
         kv = gp.kernel.gram(x, gp.x)[0] * mask
-        u_raw = (cache.Kinv @ kv) * mask
-        u_ref = (u_raw + cache.Kinv @ (kv - cache.K @ u_raw)) * mask
-        u_sol = torch.linalg.solve_triangular(
-            gp.L.T, torch.linalg.solve_triangular(gp.L, kv[:, None],
-                                                  upper=False),
-            upper=True)[:, 0] * mask
+        u_raw, u_ref, u_sol = (gp_mod._pivot(gp, cache, kv, mode)[0]
+                               for mode in (True, "refined", False))
         K64 = cache.K[:n, :n].double()
         u64 = torch.cholesky_solve(kv[:n, None].double(),
                                    torch.linalg.cholesky(K64))[:, 0]
@@ -2390,7 +2476,7 @@ def modes_path(dev, gen):
     del step, g_e, cache_e
     torch.cuda.empty_cache()
     return dict(refined_s=t_ref, true_s=t_raw, captured_s=t_cap,
-                errs=errs), counts
+                held=held, errs=errs), counts
 
 
 def gram_rows_check(where: str, kernel, X1, X2) -> float:
@@ -2449,6 +2535,98 @@ def perturbed_f64(fn, inputs: dict, rel: float, dtype=torch.float64,
         v.shape, generator=g, dtype=torch.float64) * 2 - 1).to(v.device))
         ).to(dtype) for k, v in inputs.items()}
     return fn(**moved)
+
+
+def spgp_value_grad(sp, spgp, xb, p, x, y):
+    """The FITC NLML of ``sp``'s model (kernel and mean cast to p's dtype)
+    at (xb, p, x, y), and its gradient in (xb, p) flattened."""
+    xb, p = (t.detach().requires_grad_(True) for t in (xb, p))
+    val = spgp.neg_log_marginal_likelihood(
+        cast(sp.kernel, p.dtype).with_params(p), cast(sp.mean, p.dtype), xb,
+        x, y, sp.n)
+    g1, g2 = torch.autograd.grad(val, (xb, p))
+    return val.detach(), torch.cat([g1.reshape(-1), g2])
+
+
+def spgp_readings(sp, spgp, Xq, v32, g32) -> dict:
+    """The f32 SPGP's NLML ``v32``, its gradient ``g32`` in (xb, kernel
+    parameters) and its query at Xq against the same functions in f64 on
+    the same inputs, each beside its limit, and for the gradient and the
+    query a control on inputs moved by 2^-9 that must miss it.  Limits, in
+    BO_SLACK times a scale: the NLML's move under one f32 rounding of the
+    inputs plus its f32 accumulation over the n points (sqrt(n) 2^-24
+    sum|terms|); for the gradient the larger of its move under one f32
+    rounding and its accumulation over the n points at its own scale
+    (sqrt(n) 2^-24 max|g|); for the query the larger of its move under one
+    f32 rounding (in f64) and under one f32 step (in f32).  Readings of
+    several data sets: scripts/torch_spgp_spread.py."""
+    n = sp.n
+    inputs = dict(xb=sp.xb, p=sp.kernel.params, x=sp.x, y=sp.y)
+
+    def value_grad(xb, p, x, y):
+        return spgp_value_grad(sp, spgp, xb, p, x, y)
+
+    v64, g64 = value_grad(**{k: t.double() for k, t in inputs.items()})
+    vs, gs = perturbed_f64(value_grad, inputs, F32_U)
+    r = dict(n=n, m=sp.m, nlml_err=float((v32.double() - v64).abs()),
+             nlml_sens=float((vs - v64).abs()),
+             nlml_acc=n ** 0.5 * F32_U * nlml_abs_terms(sp, spgp),
+             grad_err=float((g32.double() - g64).abs().max()),
+             grad_sens=float((gs - g64).abs().max()),
+             grad_max=float(g64.abs().max()))
+    r["nlml_tol"] = BO_SLACK * r["nlml_sens"] + r["nlml_acc"]
+    r["grad_acc"] = n ** 0.5 * F32_U * r["grad_max"]
+    r["grad_tol"] = BO_SLACK * max(r["grad_sens"], r["grad_acc"])
+    r["grad_control"] = float((perturbed_f64(
+        value_grad, inputs, 2.0 ** -9, torch.float32)[1] - g64).abs().max())
+
+    def q(xb, p, x, y, q):
+        dt = p.dtype
+        s = sp.replace(kernel=cast(sp.kernel, dt).with_params(p),
+                       mean=cast(sp.mean, dt), xb=xb, x=x, y=y)
+        mu_, var_ = spgp.query(s, q)
+        return torch.cat([mu_[:, 0], var_])
+
+    qin = dict(inputs, q=Xq)
+    mv = torch.cat([t.reshape(-1) for t in spgp.query(sp, Xq)])
+    mv64 = q(**{k: t.double() for k, t in qin.items()})
+    r["query_err"] = float((mv.double() - mv64).abs().max())
+    r["query_sens"] = [
+        float((perturbed_f64(q, qin, F32_U) - mv64).abs().max()),
+        float((perturbed_f64(q, qin, 2 * F32_U, torch.float32)
+               - mv).abs().max())]
+    r["query_tol"] = BO_SLACK * max(r["query_sens"])
+    r["query_control"] = float((perturbed_f64(
+        q, qin, 2.0 ** -9, torch.float32) - mv64).abs().max())
+    return r
+
+
+def hold_spgp(r: dict) -> None:
+    """Log spgp_readings' numbers and raise where one misses its limit or a
+    control passes."""
+    for name, what in (("nlml", f"{BO_SLACK} x its move under one f32 "
+                        f"rounding ({r['nlml_sens']:.3e}) + sqrt(n) 2^-24 "
+                        f"sum|terms| ({r['nlml_acc']:.3e})"),
+                       ("grad", f"{BO_SLACK} x the larger of its move under "
+                        f"one f32 rounding ({r['grad_sens']:.3e}) and sqrt(n)"
+                        f" 2^-24 max|g| ({r['grad_acc']:.3e})"),
+                       ("query", f"{BO_SLACK} x the larger of its move under "
+                        f"one f32 rounding (f64: {r['query_sens'][0]:.3e}) "
+                        f"and under one f32 step (f32: "
+                        f"{r['query_sens'][1]:.3e})")):
+        e, tol = r[f"{name}_err"], r[f"{name}_tol"]
+        ok = e <= tol
+        log(f"  spgp {name} vs f64: max |err| {e:.3e}, {e / tol:.3g} of the "
+            f"limit {tol:.3e} = {what}: {'ok' if ok else 'over'}")
+        if not ok:
+            raise AssertionError(f"spgp (c): the {name} misses its limit")
+        if name != "nlml":
+            c = r[f"{name}_control"]
+            log(f"  control: the f32 {name} on inputs moved by 2^-9 is off "
+                f"by {c:.3e} ({c / tol:.3g} of the limit)")
+            if not c > tol:
+                raise AssertionError(f"spgp (c): a {name} from inputs moved "
+                                     "by 2^-9 passes its check")
 
 
 def models_path(dev, gen, data):
@@ -2580,91 +2758,16 @@ def models_path(dev, gen, data):
     t_fit = time.perf_counter() - t0
     m = sp.m
 
-    def nlml(xb, p, x, y):
-        kk = cast(sp.kernel, p.dtype).with_params(p)
-        return spgp.neg_log_marginal_likelihood(
-            kk, cast(sp.mean, p.dtype), xb, x, y, sp.n)
-
-    inputs = dict(xb=sp.xb, p=sp.kernel.params, x=sp.x, y=sp.y)
-    xb = sp.xb.clone().requires_grad_(True)
-    p = sp.kernel.params.clone().requires_grad_(True)
     t0 = time.perf_counter()
-    v = nlml(xb, p, sp.x, sp.y)
-    gx, gp_ = torch.autograd.grad(v, (xb, p))
+    v, g32 = spgp_value_grad(sp, spgp, sp.xb, sp.kernel.params, sp.x, sp.y)
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
-    g32 = torch.cat([gx.reshape(-1), gp_])
-
-    def value_grad(**kw):
-        xb_ = kw["xb"].requires_grad_(True)
-        p_ = kw["p"].requires_grad_(True)
-        val = nlml(xb_, p_, kw["x"], kw["y"])
-        g1, g2 = torch.autograd.grad(val, (xb_, p_))
-        return val.detach(), torch.cat([g1.reshape(-1), g2])
-
     with uncounted():
-        v64, g64 = value_grad(**{k: t.double() for k, t in inputs.items()})
-        vs, gs = perturbed_f64(value_grad, inputs, F32_U)
-        sens_v, sens_g = float((vs - v64).abs()), float(
-            (gs - g64).abs().max())
-        # the NLML is a sum over the n points, whose f32 accumulation
-        # (sqrt(n) 2^-24 sum|terms|) the input move does not show
-        acc = n ** 0.5 * F32_U * nlml_abs_terms(sp, spgp)
-        e_v = check_close("spgp NLML vs f64", v.detach(), v64,
-                          BO_SLACK * sens_v + acc,
-                          f"{BO_SLACK} x its move under one f32 rounding "
-                          f"+ sqrt(n) 2^-24 sum|terms| "
-                          f"({BO_SLACK * sens_v + acc:.3e})")
-        # the f32 gradient's own rounding: its largest move under one f32
-        # step of the inputs (three draws), computed in f32
-        sens_g32 = max(float((perturbed_f64(
-            value_grad, inputs, 2 * F32_U, torch.float32, seed)[1]
-            - g32).abs().max()) for seed in (2, 3, 4))
-        tol_g = BO_SLACK * max(sens_g, sens_g32)
-        e_g = check_close("spgp NLML gradient vs f64", g32, g64, tol_g,
-                          f"{BO_SLACK} x the larger of its move under one "
-                          f"f32 rounding (f64: {sens_g:.3e}) and under one "
-                          f"f32 step (f32, largest of 3: {sens_g32:.3e})")
-        ctl_g = float((perturbed_f64(value_grad, inputs, 2.0 ** -9,
-                                     torch.float32)[1] - g64).abs().max())
-        log(f"  in units of that limit: {e_g / tol_g:.3g}; control: the f32 "
-            f"gradient on inputs moved by 2^-9 is off by {ctl_g:.3e} "
-            f"({ctl_g / tol_g:.3g} of the limit); max |g| "
-            f"{float(g64.abs().max()):.3e}")
-        if not ctl_g > tol_g:
-            raise AssertionError("spgp (c): a gradient from inputs moved by "
-                                 "2^-9 passes the gradient check")
-
-        def q(**kw):
-            dt = kw["p"].dtype
-            kk = cast(sp.kernel, dt).with_params(kw["p"])
-            s64 = sp.replace(kernel=kk, mean=cast(sp.mean, dt),
-                             xb=kw["xb"], x=kw["x"], y=kw["y"])
-            mu_, var_ = spgp.query(s64, kw["q"])
-            return torch.cat([mu_[:, 0], var_])
-
-        qin = dict(inputs, q=Xq)
-        mv = torch.cat([t.reshape(-1) for t in spgp.query(sp, Xq)])
-        mv64 = q(**{k: t.double() for k, t in qin.items()})
-        sens_q = float((perturbed_f64(q, qin, F32_U) - mv64).abs().max())
-        sens_q32 = float((perturbed_f64(q, qin, 2 * F32_U, torch.float32)
-                          - mv).abs().max())
-        tol_q = BO_SLACK * max(sens_q, sens_q32)
-        e_q = check_close("spgp query (mu, var) vs f64", mv, mv64, tol_q,
-                          f"{BO_SLACK} x the larger of its move under one "
-                          f"f32 rounding (f64: {sens_q:.3e}) and under one "
-                          f"f32 step (f32: {sens_q32:.3e})")
-        # control: the f32 query on inputs moved by 2^-9 misses the limit
-        ctl = float((perturbed_f64(q, qin, 2.0 ** -9, torch.float32)
-                     - mv64).abs().max())
-        log(f"  control: the f32 query on inputs moved by 2^-9 is off by "
-            f"{ctl:.3e}")
-        if not ctl > tol_q:
-            raise AssertionError("spgp (c): a query from inputs moved by "
-                                 "2^-9 passes the query check")
+        rd = spgp_readings(sp, spgp, Xq, v, g32)
+        hold_spgp(rd)
         err = max(err, gram_rows_check("spgp (c)", sp.kernel, sp.x, sp.xb),
                   gram_rows_check("spgp (c)", sp.kernel, sp.xb, sp.xb))
-    v0 = float(v.detach())
+    v0 = float(v)
     t0 = time.perf_counter()
     sp2 = spgp.SPGPHpOpt(optimizer=Rprop(iterations=10))(sp, gen)
     torch.cuda.synchronize()
@@ -2680,13 +2783,8 @@ def models_path(dev, gen, data):
     check_finite("spgp (c)", xb=sp2.xb, p=sp2.kernel.params)
     check_counts("spgp (c)", counts["models_c"], {"gram": (2 * 12, None)})
     out["c"] = dict(fit_s=t_fit, eval_s=t_eval, hp_s=t_hp, m=m,
-                    nlml=[v0, v1], errs=dict(nlml=e_v, grad=e_g, query=e_q,
-                                             sens_nlml=sens_v,
-                                             sens_grad=[sens_g, sens_g32],
-                                             control_grad=ctl_g,
-                                             sens_query=[sens_q, sens_q32],
-                                             control_query=ctl))
-    del sp, sp2, xb, p, gx, gp_, v
+                    nlml=[v0, v1], errs=rd)
+    del sp, sp2, v, g32
     torch.cuda.empty_cache()
 
     # (d) BOptimizer over SPGP, (e) capped at max_model_points

@@ -408,13 +408,13 @@ class QueryCache:
               lite: bool = False) -> "QueryCache":
         """Linv = L^{-1}, then Kinv = Linv^T Linv (one exact-f32 product).
 
-        Linv comes from the blocked inverse with its panel kernel on the
-        card from TRI_INV_MIN_N (ops/chol.py), elsewhere from the library
-        triangular solve against identity panels ``block`` wide (rounded
-        down to a divisor of N), so its workspace is N x block.  On the
-        blocked route a lite cache with a mirror below the GP's precision
-        never forms the f32 K^{-1}: the mirror comes from Linv panel by
-        panel and ay / u_ones from two passes over Linv
+        Linv comes from ``tri_inv`` (ops/chol.py): the blocked inverse with
+        its panel kernel on the card from TRI_INV_MIN_N, elsewhere one
+        library triangular solve.  ``block``, the reference's panel width
+        for its solve (which bounds XLA's temporaries), is accepted and
+        unused.  On the blocked route a lite cache with a mirror below the
+        GP's precision never forms the f32 K^{-1}: the mirror comes from
+        Linv panel by panel and ay / u_ones from two passes over Linv
         (limbo_tpu/models/gp.py:446-461).  ``with_K`` keeps the training
         covariance (the gram_train kernel on the card); ``lite`` needs
         ``with_Linv`` and ``defer_m`` > 0."""
@@ -430,9 +430,8 @@ class QueryCache:
             rhs = torch.cat([gp.y * mask[:, None], mask[:, None]], dim=1)
             defer = dict(P=torch.zeros((N, defer_m), dtype=dtype, device=dev),
                          base_n=gp.n, base_n_dev=gp.n_dev.clone())
-        blocked = use_blocked_tri(N, dev)
-        Linv = tri_inv(gp.L) if blocked else _tri_inv_panels(gp.L, block)
-        if lite and blocked and qdtype not in (None, dtype):
+        Linv = tri_inv(gp.L)
+        if lite and use_blocked_tri(N, dev) and qdtype not in (None, dtype):
             a = _linv_solve(Linv, rhs)
             return cls(Linv=Linv, Kinv_q=_mirror_from_linv(Linv, qdtype),
                        ay=a[:, :-1], u_ones=a[:, -1], **defer)
@@ -446,21 +445,6 @@ class QueryCache:
         return cls(Kinv=Kinv, K=K, Linv=Linv if with_Linv else None,
                    Kinv_q=Kinv.to(qdtype) if qdtype is not None else None,
                    **defer)
-
-
-def _tri_inv_panels(L: torch.Tensor, block: int) -> torch.Tensor:
-    """L^{-1} by the library triangular solve against identity column
-    panels of width ``_panel_width(N, block)``, written into one (N, N)
-    tensor (limbo_tpu/models/gp.py:465-480)."""
-    N = L.shape[0]
-    w = _panel_width(N, block)
-    Linv = torch.zeros_like(L)
-    for c0 in range(0, N, w):
-        cols = torch.zeros((N - c0, w), dtype=L.dtype, device=L.device)
-        cols[:w].fill_diagonal_(1.0)
-        Linv[c0:, c0:c0 + w] = torch.linalg.solve_triangular(
-            L[c0:, c0:], cols, upper=False)
-    return Linv
 
 
 class _SymQuadDiag(torch.autograd.Function):
@@ -639,6 +623,40 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
             "this cache was built with defer_m > 0; immediate-update modes "
             "would leave its pending-pivot state inconsistent - use "
             "fast_update='deferred' or rebuild the cache without defer_m")
+    u, l = _pivot(gp, cache, k_vec, fast_update)
+    s = torch.clamp(kappa - torch.dot(k_vec, u), s_floor, kappa)
+    v = u - e_i
+    Kinv = cache.Kinv
+    Kinv.addr_(v / s, v)
+    Kinv.diagonal().sub_(e_i)          # Kinv[i, i] -= 1 at the device index
+    d = torch.sqrt(s)
+    _put_row(gp.L, gp.n_dev, l * mask + d * e_i)
+    if cache.Linv is not None:
+        _put_row(cache.Linv, gp.n_dev, -(u / d) * mask + (1.0 / d) * e_i)
+    if cache.K is not None:
+        # K's row and column i were e_i (the padded identity); the border
+        # is k (masked, so 0 at i) + kappa e_i
+        border = k_vec + kappa * e_i
+        _put_row(cache.K, gp.n_dev, border)
+        cache.K.index_copy_(1, gp.n_dev.reshape(1), border[:, None])
+    _put_row(gp.x, gp.n_dev, x_new)
+    _put_row(gp.y, gp.n_dev, y_new)
+    gp2 = gp.replace(n=i + 1, n_dev=gp.n_dev + 1)
+    mask2 = gp2.mask
+    mean = prepare_mean(gp2.mean, gp2.y, mask2)
+    centered = (gp2.y - mean(gp2.x)) * mask2[:, None]
+    alpha = Kinv @ centered
+    if cache.Kinv_q is not None:
+        cache.Kinv_q.copy_(Kinv)
+    return gp2.replace(mean=mean, alpha=alpha), cache
+
+
+def _pivot(gp: GP, cache: QueryCache, k_vec, fast_update
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pivot u = K^{-1} k (masked) of an immediate append and the
+    Cholesky row l = L^{-1} k, by ``fast_update``'s route (see
+    add_sample_cached)."""
+    mask = gp.mask
     l = None
     if fast_update == "linv":
         if cache.Linv is None:
@@ -668,31 +686,7 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
     if l is None:
         # u = L^{-T} L^{-1} k, so l = L^{-1} k = L^T u (one matvec)
         l = gp.L.T @ u
-    s = torch.clamp(kappa - torch.dot(k_vec, u), s_floor, kappa)
-    v = u - e_i
-    Kinv = cache.Kinv
-    Kinv.addr_(v / s, v)
-    Kinv.diagonal().sub_(e_i)          # Kinv[i, i] -= 1 at the device index
-    d = torch.sqrt(s)
-    _put_row(gp.L, gp.n_dev, l * mask + d * e_i)
-    if cache.Linv is not None:
-        _put_row(cache.Linv, gp.n_dev, -(u / d) * mask + (1.0 / d) * e_i)
-    if cache.K is not None:
-        # K's row and column i were e_i (the padded identity); the border
-        # is k (masked, so 0 at i) + kappa e_i
-        border = k_vec + kappa * e_i
-        _put_row(cache.K, gp.n_dev, border)
-        cache.K.index_copy_(1, gp.n_dev.reshape(1), border[:, None])
-    _put_row(gp.x, gp.n_dev, x_new)
-    _put_row(gp.y, gp.n_dev, y_new)
-    gp2 = gp.replace(n=i + 1, n_dev=gp.n_dev + 1)
-    mask2 = gp2.mask
-    mean = prepare_mean(gp2.mean, gp2.y, mask2)
-    centered = (gp2.y - mean(gp2.x)) * mask2[:, None]
-    alpha = Kinv @ centered
-    if cache.Kinv_q is not None:
-        cache.Kinv_q.copy_(Kinv)
-    return gp2.replace(mean=mean, alpha=alpha), cache
+    return u, l
 
 
 def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,

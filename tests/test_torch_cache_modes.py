@@ -37,8 +37,17 @@ _jadd = jax.jit(jgp.add_sample_cached, static_argnames=("fast_update",))
 _jquery_cached = jax.jit(jgp.query_cached)
 
 
-def _jbuild(gj, **kw):
-    return jax.jit(lambda g: jgp.QueryCache.build(g, **kw))(gj)
+_BUILT = {}
+
+
+def _jbuild(gj, route, **kw):
+    """The reference's cache of the module's GP, built once per form and
+    route (the build and append tests share the forms they have in
+    common)."""
+    key = (id(gj), route, tuple(sorted((k, str(v)) for k, v in kw.items())))
+    if key not in _BUILT:
+        _BUILT[key] = jax.jit(lambda g: jgp.QueryCache.build(g, **kw))(gj)
+    return _BUILT[key]
 
 
 D, N0, CAP = 3, 300, 384
@@ -111,20 +120,22 @@ def _cache_fields(cj, ct, mirror_bf16=False):
 @pytest.mark.parametrize("kw,route", [
     (dict(with_K=True), "panels"),
     (dict(with_K=True, with_Linv=True, block=100), "panels"),
-    (dict(with_Linv=True, defer_m=4, lite=True), "panels"),
-    (dict(with_Linv=True, defer_m=4, lite=True, qdtype="bf16"), "panels"),
-    (dict(with_Linv=True, defer_m=4, lite=True, qdtype="bf16"), "blocked"),
+    (dict(with_Linv=True, defer_m=5, lite=True), "panels"),
+    (dict(with_Linv=True, defer_m=5, lite=True, qdtype="bf16"), "panels"),
+    (dict(with_Linv=True, defer_m=5, lite=True, qdtype="bf16"), "blocked"),
 ])
 def test_build_forms_equal_reference(pair, monkeypatch, kw, route):
     """Every field of the cache, f64 to 1e-9 (a bf16 mirror to one bf16
-    rounding); ``block`` = 100 solves in 4 panels of 96 columns."""
+    rounding).  "panels" is the library route, on which the reference
+    solves for Linv in panels (``block`` = 100: 4 of 96 columns) and the
+    port in one solve; "blocked" is the blocked inverse's route."""
     gj, _ = pair
     if route == "blocked":
         _blocked(monkeypatch)
     bf16 = kw.get("qdtype") == "bf16"
     jkw = dict(kw, qdtype=jnp.bfloat16) if bf16 else kw
     tkw = dict(kw, qdtype=torch.bfloat16) if bf16 else kw
-    cj = _jbuild(gj, **jkw)
+    cj = _jbuild(gj, route, **jkw)
     ct = tgp.QueryCache.build(_port(gj), **tkw)
     _cache_fields(cj, ct, bf16)
     if kw.get("lite"):
@@ -165,7 +176,7 @@ def _run_appends(gj, ct_kw, mode, pts, monkeypatch, route):
     tkw = dict(ct_kw)
     if ct_kw.get("qdtype") == "bf16":
         jkw["qdtype"], tkw["qdtype"] = jnp.bfloat16, torch.bfloat16
-    cj = _jbuild(gj, **jkw)
+    cj = _jbuild(gj, route, **jkw)
     ct = tgp.QueryCache.build(gt, **tkw)
     for x in pts:
         y = np.array([np.sin(3.0 * x.sum())])
@@ -243,3 +254,47 @@ def test_raw_and_refined_refusals(pair):
     for kw in (dict(with_Linv=True, lite=True), dict(defer_m=4, lite=True)):
         with pytest.raises(ValueError, match="lite"):
             tgp.QueryCache.build(gt, **kw)
+
+
+def test_chip_smoke_modes_checks_and_controls():
+    """chip_smoke.py's modes_held on an f32 state (N = 384, 300 points, 12
+    refined and 12 True appends): K and both pivots pass their limits, and
+    each control (K with an unwritten border column, the refined pivot
+    from it, the raw pivot against the refined limit) misses it; a pivot
+    route with its refinement step left out is refused."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    rng = np.random.default_rng(8)
+    X = torch.from_numpy(rng.uniform(size=(N0, D))).float()
+    Y = torch.sin(3.0 * X.sum(1, keepdim=True))
+    k = kernels.SquaredExpARD.create(dim=D, noise=0.01, device="cpu")
+    states = []
+    for mode, kw in (("refined", dict(with_K=True)), (True, {})):
+        g = tgp.fit(k, means.DataMean.create(device="cpu"), X, Y,
+                    capacity=CAP, device="cpu")
+        c = tgp.QueryCache.build(g, qdtype=torch.bfloat16, **kw)
+        for x in torch.from_numpy(rng.uniform(size=(12, D))).float():
+            g, c = tgp.add_sample_cached(g, c, x, torch.sin(3 * x.sum())[None],
+                                         fast_update=mode)
+        states += [g, c]
+    x = torch.from_numpy(rng.uniform(size=(1, D))).float()
+    out = chip_smoke.modes_held(tgp, *states, x)
+    for key in ("K", "pivot_true", "pivot_refined"):
+        assert out[f"{key}_in_limit"] <= 1.0
+    assert min(out["control_K_missed"], out["control_pivot_missed"],
+               out["control_raw_missed"]) > 0
+
+    class Unrefined:
+        def __getattr__(self, name):
+            return getattr(tgp, name)
+
+        @staticmethod
+        def _pivot(gp, cache, k_vec, mode):
+            return tgp._pivot(gp, cache, k_vec, True)
+
+    with pytest.raises(AssertionError, match="refined pivot"):
+        chip_smoke.modes_held(Unrefined(), *states, x)

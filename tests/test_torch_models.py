@@ -38,6 +38,7 @@ F64 = dict(device="cpu", dtype=torch.float64)
 # the reference's entry points jitted: one compile instead of one per
 # primitive in eager mode, which keeps these tests inside their budget
 _jq = {m: jax.jit(m.query) for m in (jit_, jspgp, jmulti)}
+_jspgp_fit = jax.jit(jspgp.fit, static_argnames=("m",))
 
 
 def _close(got, want, rel=1e-9):
@@ -132,7 +133,7 @@ def test_iterative_fit_query_refit_equal_reference():
     for a, b in zip(iterative.query(it, _t(Xq)), tgp.query(exact, _t(Xq))):
         _close(a, b.numpy(), rel=1e-6)
     xn, yn = rng.uniform(size=2), rng.normal(size=1)
-    ij = jit_.add_sample(ij, jnp.asarray(xn), jnp.asarray(yn))
+    ij = jax.jit(jit_.add_sample)(ij, jnp.asarray(xn), jnp.asarray(yn))
     it = iterative.add_sample(it, _t(xn), _t(yn))
     assert it.n == int(ij.n) == 41
     _close(it.alpha, ij.alpha)                      # stale until refit
@@ -155,9 +156,9 @@ def _spgp_pair(n=20, d=2, m=5):
     Y = rng.normal(size=(n, 1))
     kj = jk.SquaredExpARD.create(dim=d, noise=0.05, dtype=jnp.float64)
     kt = kernels.SquaredExpARD.create(dim=d, noise=0.05, **F64)
-    sj = jspgp.fit(kj, jm.DataMean.create(dtype=jnp.float64),
-                   jnp.asarray(X), jnp.asarray(Y), m=m,
-                   key=jax.random.PRNGKey(3))
+    sj = _jspgp_fit(kj, jm.DataMean.create(dtype=jnp.float64),
+                    jnp.asarray(X), jnp.asarray(Y), m=m,
+                    key=jax.random.PRNGKey(3))
     st = spgp.fit(kt, means.DataMean.create(**F64), _t(X), _t(Y), m=m,
                   xb=_t(sj.xb), device="cpu")
     return sj, st, rng
@@ -340,19 +341,22 @@ def test_parallel_lf_opt_on_the_reference_perturbations():
     key = jax.random.PRNGKey(0)
     R, eps = 2, 0.5
     P = kt.params_size
-    perts = [np.asarray(jax.random.uniform(
+    perts = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.uniform(
         jax.random.split(k, R + 1)[0], (R, P), dtype=jnp.float64,
-        minval=-eps, maxval=eps)) for k in jax.random.split(key, 2)]
+        minval=-eps, maxval=eps)))(jax.random.split(key, 2)))
     mj2 = jax.jit(jmulti.ParallelLFOpt(hp_opt=JKernelLFOpt(
         JRprop(iterations=20), restarts=R)))(mj, key)
     mt2 = multi_gp.ParallelLFOpt(hp_opt=KernelLFOpt(
         Rprop(iterations=20), restarts=R))(
         mt, [torch.Generator() for _ in range(2)],
         perts=[torch.from_numpy(np.array(p)) for p in perts])
-    for j, g in enumerate(mt2.gps):
-        gj = jax.tree_util.tree_map(lambda a: a[j], mj2.gps)
-        _close(g.kernel.params, gj.kernel.params, rel=1e-8)
-        _close(tgp.log_lik(g), jax.jit(jgp.log_lik)(gj), rel=1e-8)
+    def each(gps):
+        out = [jax.tree_util.tree_map(lambda a: a[j], gps) for j in range(2)]
+        return [(g.kernel.params, jgp.log_lik(g)) for g in out]
+
+    for g, (pj, llj) in zip(mt2.gps, jax.jit(each)(mj2.gps)):
+        _close(g.kernel.params, pj, rel=1e-8)
+        _close(tgp.log_lik(g), llj, rel=1e-8)
     assert not torch.equal(mt2.gps[0].kernel.params,
                            mt2.gps[1].kernel.params)
 
