@@ -123,7 +123,29 @@ Run from the repository root on a machine with one NVIDIA H100:
    n = 4096 (bit for bit against independent fits) and ParallelLFOpt.
    Each kernel the subpaths launched is held against its plain version at
    their shapes.
-13. Prints a JSON line of each path's numbers, a JSON line of per-kernel
+13. mo path (``mo_path``): multi-objective and batch BO (the port's
+   native hv / EHVI library is built with g++ at its first use here).
+   (a) to (e) are the examples' loops at their own sizes in the
+   reference's f64, which launch no kernel: ``Ehvi`` on mop2 (d = 2, 20 iterations), ``Nsbo`` on
+   mop2 (10, each NSGA-II call's seconds and launches printed),
+   ``Parego`` on zdt2 (d = 3, 15), ``Ehvi(q=2, gh_nodes=12)`` on mop2
+   (10) and the 3-objective ``Ehvi`` on DTLZ2 (d = 3, 15).  (f)
+   ``BOptimizer.optimize_batch(q=4, restarts=16, steps=30, QEI(128))`` on
+   -Hartmann6 at bo path (c)'s width (SquaredExpARD, 4096 init points,
+   capacity 5120, f32, 10 rounds): gram in every ascent step.  (g)
+   ``Ehvi`` in f32 on mop2 at d = 6 with 4096 init points (capacity 4160),
+   5 iterations: gram_train at each MultiGP refit and gram in each of the
+   50 Rprop steps over the 64 seeds.  Each run prints its set-up seconds,
+   iterations/s and launches, and must return a front that the port's
+   mask and the native filter both find non-dominated (the two agree over
+   every observation), whose hypervolume (hypervolume_2d against the
+   native sweep to 1e-12) is above the init design's; (a) and (e) hold the
+   last step's EHVI at its point in f64 against the native exact EHVI to
+   1e-10, (d) its batch's q-EHVI between its best singleton's and their
+   sum; (f) and (g) hold the best observations, a finite model, the
+   posterior against f64 and each launched kernel against its plain
+   version on the run's state.
+14. Prints a JSON line of each path's numbers, a JSON line of per-kernel
    numbers, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -140,6 +162,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # data-sheet peaks of one H100 SXM (NVIDIA): HBM bandwidth, the f32 rate
@@ -191,6 +214,17 @@ REG_N, REG_CAPACITY = 600, 768
 LITE_N, LITE_CAPACITY, LITE_ITERS, LITE_DEFER_M = 32_768, 33_280, 6, 256
 MODES_ITERS, MODES_GRAPH_ITERS = 40, 10
 MODELS_B_ITERS, MODELS_D_ITERS, MODELS_E_ITERS = 2, 30, 30
+# slice 10, the mo path: the examples' multi-objective loops at their own
+# sizes (a to e), then optimize_batch at bo path (c)'s width (f) and EHVI in
+# f32 at 4096 points (g), each kept to a few seconds on the card
+MO_A_ITERS, MO_B_ITERS, MO_C_ITERS, MO_D_ITERS, MO_E_ITERS = 20, 10, 15, 10, 15
+MO_F_INIT, MO_F_ROUNDS = 4096, 10
+MO_G_INIT, MO_G_ITERS, MO_G_DIM = 4096, 5, 6
+# the posterior's control in (f) and (g): at n = 4136 (SquaredExpARD, d = 6)
+# inputs moved by 2^-9 moved the f64 mean by 27 of the limit's 32 units of
+# its f32 move (sound 4.69; PERF.md, mo path), so the control moves them by
+# 2^-8; the limit is BO_SLACK as elsewhere
+MO_CONTROL_REL = 2.0 ** -8
 # the launches of one 190-iteration run of each variant: the sweep's gram
 # (1024 x 256 = 512^2) once an iteration where the ascent maximizes (the
 # ascent's 64 x 256 and the hp-opt at capacity 256 stay under the kernels'
@@ -596,12 +630,13 @@ def mirror_rows(dev, gen, Xs, K, N):
 def posterior_f64(gp, Xq, rel: float = 0.0, dist: bool = False):
     """The exact posterior of the stored data in f64 (plain Cholesky, no
     cache, none of the port's code): mean and latent variance at Xq, for
-    SquaredExpARD (rank 0) and MaternFiveHalves with DataMean.  With
-    ``rel`` > 0, every input (the data, the queries and the kernel's
-    parameters) is first multiplied by 1 + rel e, and with ``dist`` every
-    squared distance is moved by rel e (|a|^2 + |b|^2), the size of the
-    terms of the expanded form |a|^2 + |b|^2 - 2 a.b the kernels compute
-    (utils/maths.sq_dist); e is uniform in [-1, 1] from a fixed seed."""
+    SquaredExpARD (rank 0) and MaternFiveHalves with DataMean or
+    NullMean.  With ``rel`` > 0, every input (the data, the queries and
+    the kernel's parameters) is first multiplied by 1 + rel e, and with
+    ``dist`` every squared distance is moved by rel e (|a|^2 + |b|^2), the
+    size of the terms of the expanded form |a|^2 + |b|^2 - 2 a.b the
+    kernels compute (utils/maths.sq_dist); e is uniform in [-1, 1] from a
+    fixed seed."""
     from limbo_tpu_torch.kernels import MaternFiveHalves, SquaredExpARD
 
     g = torch.Generator().manual_seed(1)
@@ -658,7 +693,10 @@ def posterior_f64(gp, Xq, rel: float = 0.0, dist: bool = False):
     K.diagonal().add_(dadd)
     Lc = torch.linalg.cholesky(K)
     del K
-    ybar = Y.mean(dim=0)
+    from limbo_tpu_torch.means import NullMean
+
+    # DataMean's mean of the data; a MultiGP's outputs carry a NullMean
+    ybar = 0.0 if isinstance(gp.mean, NullMean) else Y.mean(dim=0)
     alpha = torch.cholesky_solve(Y - ybar, Lc)
     ks = cov(Qs, X)
     mu = ks @ alpha + ybar
@@ -1156,15 +1194,17 @@ _H6_P = torch.tensor([[0.1312, 0.1696, 0.5569, 0.0124, 0.8283, 0.5886],
 
 class _Recorded:
     """The objective, recording every point it is asked for and every value
-    it returns (an account kept apart from the GP's buffers)."""
+    it returns (an account kept apart from the GP's buffers): ``ys`` the
+    first objective's, ``obs`` every objective's."""
 
     def __init__(self, f):
-        self.f, self.xs, self.ys = f, [], []
+        self.f, self.xs, self.ys, self.obs = f, [], [], []
 
     def __call__(self, x):
         y = self.f(x)
         self.xs.append(x.copy())
         self.ys.append(float(y[0]))
+        self.obs.append(y)
         return y
 
 
@@ -1183,21 +1223,22 @@ class _SetupClock:
         return False
 
 
-def check_posterior_exact(gp, Xq):
+def check_posterior_exact(gp, Xq, control_rel: float = 2.0 ** -9):
     """The uncached posterior at Xq against the f64 posterior of the stored
     data (posterior_f64).  The limits follow the posterior's own
     conditioning: BO_SLACK times how far the f64 posterior moves when every
     input, and the terms of every squared distance, move by up to one f32
     rounding (2^-24 relative), for mu and for the variance.  A control
     asserts that both limits can fail: the posterior from inputs moved by up
-    to one bf16 rounding (2^-9) must miss each of them."""
+    to ``control_rel`` (one bf16 rounding, 2^-9, unless the caller's state
+    needs a larger move to leave the limits) must miss each of them."""
     from limbo_tpu_torch.models import gp as gp_mod
 
     with torch.no_grad():
         mu, var = gp_mod.query(gp, Xq)
     mu64, var64 = posterior_f64(gp, Xq)
     mu_s, var_s = posterior_f64(gp, Xq, rel=F32_U, dist=True)
-    mu_c, var_c = posterior_f64(gp, Xq, rel=2.0 ** -9)
+    mu_c, var_c = posterior_f64(gp, Xq, rel=control_rel)
     sens = dict(mu=float((mu_s - mu64).abs().max()),
                 var=float((var_s - var64).abs().max()))
     tol = {k: BO_SLACK * v for k, v in sens.items()}
@@ -1214,14 +1255,15 @@ def check_posterior_exact(gp, Xq):
                 control_mu=float((mu_c - mu64).abs().max()),
                 control_var=float((var_c - var64).abs().max()))
     log(f"  in units of that move: mu {errs['mu'] / sens['mu']:.3g}, var "
-        f"{errs['var'] / sens['var']:.3g}; control (inputs moved by 2^-9): mu "
+        f"{errs['var'] / sens['var']:.3g}; control (inputs moved by "
+        f"2^{math.log2(control_rel):.0f}): mu "
         f"{errs['control_mu']:.3e} ({errs['control_mu'] / sens['mu']:.3g}),"
         f" var {errs['control_var']:.3e} "
         f"({errs['control_var'] / sens['var']:.3g})")
     if not (errs["control_mu"] > tol["mu"]
             and errs["control_var"] > tol["var"]):
-        raise AssertionError("control: a posterior from inputs moved by "
-                             "2^-9 passes the posterior check")
+        raise AssertionError(f"control: a posterior from inputs moved by "
+                             f"{control_rel} passes the posterior check")
     return errs
 
 
@@ -2845,6 +2887,391 @@ def models_path(dev, gen, data):
     return out, counts
 
 
+def mop2(x):
+    """mop2 (examples/experimental/multi.py, maximized as -f) on [0, 1]^d
+    mapped to [-2, 2]^d, from a numpy array to a (2,) one in f64."""
+    x = np.asarray(x, dtype=np.float64) * 4.0 - 2.0
+    n = len(x)
+    f1 = 1.0 - np.exp(-np.sum((x - 1.0 / np.sqrt(n)) ** 2))
+    f2 = 1.0 - np.exp(-np.sum((x + 1.0 / np.sqrt(n)) ** 2))
+    return np.array([-f1, -f2])
+
+
+def zdt2(x):
+    """zdt2 (examples/experimental/multi.py, maximized as -f)."""
+    x = np.asarray(x, dtype=np.float64)
+    f1 = x[0]
+    g = 1.0 + 9.0 * np.mean(x[1:]) if len(x) > 1 else 1.0
+    return np.array([-f1, -g * (1.0 - (f1 / g) ** 2)])
+
+
+def dtlz2_3(x):
+    """DTLZ2 with 3 objectives (examples/experimental/multi3.py,
+    maximized as -f)."""
+    x = np.asarray(x, dtype=np.float64)
+    g = np.sum((x[2:] - 0.5) ** 2)
+    c1, s1 = np.cos(0.5 * np.pi * x[0]), np.sin(0.5 * np.pi * x[0])
+    c2, s2 = np.cos(0.5 * np.pi * x[1]), np.sin(0.5 * np.pi * x[1])
+    return np.array([-(1 + g) * c1 * c2, -(1 + g) * c1 * s2,
+                     -(1 + g) * s1])
+
+
+class _LastStep:
+    """A stats writer that keeps what the loop's last step saw: its model,
+    the observed front before the step's points, and the points."""
+
+    def __init__(self, q: int = 1):
+        self.q = q
+
+    def __call__(self, loop, state=None):
+        self.model = loop.model
+        self.X, self.Y = np.stack(loop.X), np.stack(loop.Y)
+        self.x_new = self.X[-self.q:]
+
+
+class _TimedNsga2:
+    """Nsga2 with each call's seconds (to a synchronize) and launches."""
+
+    def __init__(self, ea):
+        self.ea, self.calls = ea, []
+
+    def __call__(self, *args, **kwargs):
+        from limbo_tpu_torch.ops import _cuda
+
+        before = dict(_cuda.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.ea(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append(dict(
+            s=time.perf_counter() - t0,
+            launches={k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                      if v != before[k]}))
+        return out
+
+
+def mo_front_checks(where: str, f, Xp, Yp, ref, n_init: int) -> dict:
+    """A loop's returned front and observations: the front non-dominated
+    by the port's mask and by the native filter, the two masks the same
+    over every observation, the front the observations' front, the 2-D
+    hypervolume against the native sweep to 1e-12 relative, and the final
+    front's hypervolume above the init design's."""
+    from limbo_tpu_torch import native
+    from limbo_tpu_torch.ops import pareto
+
+    Y = np.stack(f.obs)
+    ref64 = np.asarray(ref, dtype=np.float64)
+    nd_port = pareto.non_dominated_mask(torch.from_numpy(Y)).numpy()
+    nd_host = native.filter_nondominated_host(Y)
+    if not np.array_equal(nd_port, nd_host):
+        raise AssertionError(f"{where}: the port's front mask and the native "
+                             "filter disagree")
+    if not (pareto.non_dominated_mask(torch.from_numpy(Yp)).all()
+            and native.filter_nondominated_host(Yp).all()):
+        raise AssertionError(f"{where}: the returned front is dominated")
+    if sorted(map(tuple, Yp)) != sorted(map(tuple, Y[nd_host])):
+        raise AssertionError(f"{where}: the returned front is not the "
+                             "observations' front")
+    hv = native.hv_host(Yp, ref64)
+    hv0 = native.hv_host(Y[:n_init][native.filter_nondominated_host(
+        Y[:n_init])], ref64)
+    out = dict(front=len(Yp), hv=hv, hv_init=hv0)
+    if Y.shape[1] == 2:
+        hv2 = float(pareto.hypervolume_2d(torch.from_numpy(Yp),
+                                          torch.from_numpy(ref64)))
+        out["hv_rel_err"] = abs(hv2 - hv) / hv
+        if not out["hv_rel_err"] <= 1e-12:
+            raise AssertionError(f"{where}: hypervolume_2d {hv2} against "
+                                 f"hv_host {hv}")
+    if not hv > hv0:
+        raise AssertionError(f"{where}: the final front's hypervolume {hv} "
+                             f"is not above the init design's {hv0}")
+    log(f"  front of {len(Yp)} non-dominated (port mask == native filter "
+        f"over {len(Y)} observations), hypervolume {hv:.6f} against the "
+        f"init design's {hv0:.6f}"
+        + (f", hypervolume_2d rel. err {out['hv_rel_err']:.2e} (limit "
+           f"1e-12)" if "hv_rel_err" in out else ""))
+    return out
+
+
+def mo_last_step_ehvi(where: str, last: _LastStep, ref, host) -> float:
+    """The last step's EHVI at its point, recomputed in f64 by the port
+    (ops.ehvi.ehvi_max on the step's model and front) against the native
+    exact EHVI (``host``), to 1e-10 relative."""
+    from limbo_tpu_torch import native
+    from limbo_tpu_torch.models import multi_gp
+    from limbo_tpu_torch.ops.ehvi import ehvi_max
+
+    prev = last.Y[:-last.q]
+    front = prev[native.filter_nondominated_host(prev)]
+    if len(front) > 64:
+        raise AssertionError(f"{where}: front of {len(front)} > 64 rows")
+    m = last.model
+    with torch.no_grad():
+        mu, var = multi_gp.query(m, torch.as_tensor(
+            last.x_new, dtype=m.gps[0].x.dtype, device=m.gps[0].x.device))
+        mu, sigma = mu.double(), torch.sqrt(torch.clamp(var.double(),
+                                                        min=1e-20))
+        got = float(ehvi_max(mu, sigma, torch.from_numpy(front).to(mu),
+                             torch.tensor(ref, dtype=torch.float64,
+                                          device=mu.device))[0])
+    want = float(host(mu.cpu().numpy(), sigma.cpu().numpy(), front,
+                      np.asarray(ref, dtype=np.float64))[0])
+    rel = abs(got - want) / abs(want)
+    log(f"  last step's EHVI at its point {got:.10e}, native {want:.10e}: "
+        f"rel. err {rel:.2e} (limit 1e-10)")
+    if not (want > 0 and rel <= 1e-10):
+        raise AssertionError(f"{where}: EHVI {got} against native {want}")
+    return rel
+
+
+def mo_run(name: str, loop, f, dim: int, gen, iters: int, ref,
+           setup_clock: bool = True):
+    """One loop's optimize on the card with the launch counts set to 0 just
+    before it and read just after; returns (front, launches, numbers).
+    Set-up: to the first stop check where the loop has one, else to the
+    end of the init design's evaluations."""
+    from limbo_tpu_torch.ops import _cuda
+
+    rec = _Recorded(f)
+    clock = _SetupClock()
+    if setup_clock:
+        loop.stop = loop.stop + (clock,)
+    n_init = loop.init.count
+    marks = []
+
+    def timed(x):
+        y = rec(x)
+        if len(rec.ys) == n_init:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        return y
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    Xp, Yp = loop.optimize(timed, dim, generator=gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(_cuda.LAUNCHES)
+    t_setup = (clock.t if setup_clock else marks[0]) - t0
+    loop_s = t1 - t0 - t_setup
+    q = getattr(loop, "q", 1)
+    log(f"mo path ({name}): set-up {t_setup:.3f} s ({n_init} init points), "
+        f"{iters} iterations {loop_s:.3f} s = {iters / loop_s:.3f} iters/s; "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    if len(rec.ys) != n_init + iters * q:
+        raise AssertionError(f"mo path ({name}): {len(rec.ys)} evaluations")
+    X = np.stack(rec.xs)
+    if not bool(((X >= 0) & (X <= 1)).all()):
+        raise AssertionError(f"mo path ({name}): a sample outside the box")
+    out = mo_front_checks(f"mo path ({name})", rec, Xp, Yp, ref, n_init)
+    out.update(setup_s=t_setup, loop_s=loop_s, iters=iters,
+               iters_per_s=iters / loop_s)
+    return rec, launches, out
+
+
+def mo_path(dev, gen):
+    """Multi-objective and batch BO through their entry points (slice 10).
+    (a) Ehvi(ref=(-1.1, -1.1)) on mop2, d = 2, MO_A_ITERS iterations;
+    (b) Nsbo(n_objs=2) on mop2, MO_B_ITERS; (c) Parego(n_objs=2,
+    iterations=MO_C_ITERS) on zdt2, d = 3; (d) Ehvi(q=2, gh_nodes=12) on
+    mop2, MO_D_ITERS; (e) Ehvi(ref=(-1.2,)*3) on DTLZ2 with 3 objectives,
+    d = 3, MO_E_ITERS: the examples' own configurations
+    (examples/experimental/{multi,multi_batch,multi3}.py) in the
+    reference's f64, which launch no kernel.  (f) BOptimizer.optimize_batch(
+    q=4, restarts=16, steps=30, QEI(128)) on -Hartmann6 at bo path (c)'s
+    width: SquaredExpARD, MO_F_INIT init points (capacity 5120), f32,
+    MO_F_ROUNDS rounds; (g) Ehvi in f32 on mop2 at d = 6 with MO_G_INIT init
+    points (capacity 4160), MO_G_ITERS iterations, a MultiGP refit each.
+
+    Each run: the front non-dominated by the port's mask and the native
+    filter (which agree over every observation), hypervolume_2d against
+    hv_host to 1e-12, the final front's hypervolume above the init
+    design's; in (a) and (e) the last step's EHVI at its point in f64
+    against the native exact EHVI to 1e-10; in (d) the chosen batch's
+    q-EHVI at least its best singleton's and at most their sum; in (f) and
+    (g) the best observations the stored ones, a finite model, its
+    posterior against f64 (check_posterior_exact) and each launched
+    kernel against its plain version on the run's state."""
+    from limbo_tpu_torch import native
+    from limbo_tpu_torch.acqui.qei import QEI, joint_posterior_multi
+    from limbo_tpu_torch.bo import BOptimizer, MaxIterations, RandomSampling
+    from limbo_tpu_torch.bo.multi import Ehvi, Nsbo, Parego
+    from limbo_tpu_torch.kernels import SquaredExpARD
+    from limbo_tpu_torch.ops import _cuda
+    from limbo_tpu_torch.ops import gram_pallas as gp_ops
+    from limbo_tpu_torch.ops.ehvi import qehvi_exact_max
+    from limbo_tpu_torch.opt import Nsga2
+
+    out, counts, err = {}, {}, 0.0
+    f64 = dict(device=dev, dtype=torch.float64)
+
+    # (a) EHVI on mop2
+    last = _LastStep()
+    loop = Ehvi(ref=(-1.1, -1.1), stop=(MaxIterations(MO_A_ITERS),),
+                stats_enabled=True, stats=(last,), **f64)
+    _, counts["mo_a"], out["a"] = mo_run("a, Ehvi mop2", loop, mop2, 2, gen,
+                                         MO_A_ITERS, (-1.1, -1.1))
+    out["a"]["ehvi_rel_err"] = mo_last_step_ehvi(
+        "mo path (a)", last, (-1.1, -1.1), native.ehvi2d_host)
+
+    # (b) NSBO on mop2, each NSGA-II call timed
+    ea = _TimedNsga2(Nsga2(pop_size=64, generations=30))
+    loop = Nsbo(n_objs=2, stop=(MaxIterations(MO_B_ITERS),), nsga2=ea, **f64)
+    _, counts["mo_b"], out["b"] = mo_run("b, Nsbo mop2", loop, mop2, 2, gen,
+                                         MO_B_ITERS, (-1.1, -1.1))
+    secs = [c["s"] for c in ea.calls]
+    log(f"  NSGA-II (64 x 30 generations): {len(secs)} calls, "
+        f"{min(secs):.3f} to {max(secs):.3f} s, launches "
+        f"{[c['launches'] for c in ea.calls]}")
+    if len(secs) != MO_B_ITERS:
+        raise AssertionError("mo path (b): NSGA-II calls != iterations")
+    out["b"]["nsga2_s"] = secs
+    out["b"]["nsga2_launches"] = [c["launches"] for c in ea.calls]
+
+    # (c) ParEGO on zdt2
+    loop = Parego(n_objs=2, iterations=MO_C_ITERS, **f64)
+    # zdt2's second objective reaches -10 at d = 3: a reference point below
+    # both objectives' ranges
+    _, counts["mo_c"], out["c"] = mo_run("c, Parego zdt2", loop, zdt2, 3,
+                                         gen, MO_C_ITERS, (-1.1, -10.1),
+                                         setup_clock=False)
+
+    # (d) exact q-EHVI, q = 2, on mop2
+    last = _LastStep(q=2)
+    loop = Ehvi(ref=(-1.1, -1.1), q=2, gh_nodes=12,
+                stop=(MaxIterations(MO_D_ITERS),), stats_enabled=True,
+                stats=(last,), **f64)
+    _, counts["mo_d"], out["d"] = mo_run("d, Ehvi q = 2 mop2", loop, mop2, 2,
+                                         gen, MO_D_ITERS, (-1.1, -1.1))
+    prev = last.Y[:-2]
+    front = torch.from_numpy(prev[native.filter_nondominated_host(prev)]).to(
+        dev)
+    refd = torch.tensor((-1.1, -1.1), **f64)
+    with torch.no_grad():
+        mu, cov = joint_posterior_multi(last.model, torch.from_numpy(
+            last.x_new).to(dev))
+        v = float(qehvi_exact_max(mu, cov, front, refd, gh_nodes=12))
+        singles = [float(qehvi_exact_max(mu[j:j + 1], cov[:, j:j + 1,
+                                                          j:j + 1],
+                                         front, refd, gh_nodes=12))
+                   for j in range(2)]
+    slack = 1e-9 * sum(singles)
+    log(f"  the chosen batch's q-EHVI {v:.6e}: singletons {singles}, at "
+        f"least the best and at most their sum (slack {slack:.1e})")
+    if not (max(singles) - slack <= v <= sum(singles) + slack):
+        raise AssertionError("mo path (d): q-EHVI outside [max, sum] of its "
+                             "singletons")
+    out["d"]["qehvi"] = [v, singles]
+
+    # (e) exact 3-D EHVI on DTLZ2
+    last = _LastStep()
+    ref3 = (-1.2, -1.2, -1.2)
+    loop = Ehvi(ref=ref3, stop=(MaxIterations(MO_E_ITERS),),
+                stats_enabled=True, stats=(last,), **f64)
+    _, counts["mo_e"], out["e"] = mo_run("e, Ehvi DTLZ2 3 objectives", loop,
+                                         dtlz2_3, 3, gen, MO_E_ITERS, ref3)
+    out["e"]["ehvi_rel_err"] = mo_last_step_ehvi(
+        "mo path (e)", last, ref3, native.ehvi3d_host)
+    for k in "abcde":
+        check_counts(f"mo path ({k})", counts[f"mo_{k}"],
+                     {x: (0, 0) for x in _cuda.LAUNCHES})
+
+    # (f) batch BO: q-EI over -Hartmann6 at 4096 points, f32
+    bo = BOptimizer(kernel=SquaredExpARD.create(dim=BO_DIM, device=dev),
+                    init=RandomSampling(MO_F_INIT),
+                    stop=(MaxIterations(MO_F_ROUNDS),), device=dev)
+    rec = _Recorded(hartmann6)
+    clock = _SetupClock()
+    bo.stop = bo.stop + (clock,)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    state = bo.optimize_batch(rec, BO_DIM, q=4, generator=gen,
+                              qei=QEI(n_samples=128), restarts=16, steps=30)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts["mo_f"] = dict(_cuda.LAUNCHES)
+    setup, loop_s = clock.t - t0, t1 - clock.t
+    gp = state.gp
+    log(f"mo path (f, optimize_batch q = 4): set-up {setup:.3f} s "
+        f"({MO_F_INIT} init points, capacity {gp.capacity}), {MO_F_ROUNDS} "
+        f"rounds {loop_s:.3f} s = {MO_F_ROUNDS / loop_s:.3f} rounds/s; best "
+        f"{state.best_value:.6f}; launches "
+        f"{({k: v for k, v in counts['mo_f'].items() if v})}")
+    n = MO_F_INIT + 4 * MO_F_ROUNDS
+    if gp.n != n or len(rec.ys) != n or state.iteration != MO_F_ROUNDS:
+        raise AssertionError(f"mo path (f): {gp.n} samples, {len(rec.ys)} "
+                             "evaluations")
+    best = float(torch.tensor(max(rec.ys), dtype=torch.float32))
+    if state.best_value != best:
+        raise AssertionError(f"mo path (f): best_value {state.best_value} "
+                             f"!= max(observed) {best}")
+    X = torch.stack([torch.from_numpy(x) for x in rec.xs])
+    if not (bool(((X >= 0) & (X <= 1)).all())
+            and bool(((gp.x[:n] >= 0) & (gp.x[:n] <= 1)).all())):
+        raise AssertionError("mo path (f): a sample outside [0, 1]^6")
+    check_finite("mo path (f)", L=gp.L, alpha=gp.alpha)
+    check_counts("mo path (f)", counts["mo_f"],
+                 {"gram": (30 * MO_F_ROUNDS, None)})
+    out["f"] = dict(setup_s=setup, loop_s=loop_s, rounds=MO_F_ROUNDS,
+                    rounds_per_s=MO_F_ROUNDS / loop_s, best=state.best_value,
+                    launches_per_round={k: v / MO_F_ROUNDS for k, v in
+                                        counts["mo_f"].items() if v})
+    with uncounted():
+        err = max(err, bo_kernel_checks("mo path (f)", gp, None, gen, dev))
+        out["f"]["errs"] = check_posterior_exact(gp, torch.rand(
+            (RESTARTS, BO_DIM), generator=gen, device=dev),
+            control_rel=MO_CONTROL_REL)
+    del state, gp, bo
+    torch.cuda.empty_cache()
+
+    # (g) EHVI in f32 at 4096 points, d = 6
+    loop = Ehvi(ref=(-1.1, -1.1), init=RandomSampling(MO_G_INIT),
+                stop=(MaxIterations(MO_G_ITERS),), dtype=torch.float32,
+                device=dev)
+    rec, counts["mo_g"], out["g"] = mo_run(
+        "g, Ehvi f32 mop2 d = 6", loop, mop2, MO_G_DIM, gen, MO_G_ITERS,
+        (-1.1, -1.1))
+    m = loop.model
+    n = MO_G_INIT + MO_G_ITERS
+    Y32 = torch.tensor(np.stack(rec.obs), dtype=torch.float32)
+    stored = torch.cat([g.y[:n] for g in m.gps], dim=1).cpu()
+    if m.n != n or not torch.equal(stored, Y32):
+        raise AssertionError("mo path (g): the model's observations are not "
+                             "the f32 roundings of the evaluated ones")
+    if not torch.equal(stored.max(0).values, Y32.max(0).values):
+        raise AssertionError("mo path (g): best observations differ")
+    check_finite("mo path (g)", **model_fields(m))
+    check_counts("mo path (g)", counts["mo_g"], {
+        "gram_train": (2 * (MO_G_ITERS + 1), None),
+        "gram": (2 * 50 * MO_G_ITERS, None)})
+    with uncounted():
+        for j, g in enumerate(m.gps):
+            err = max(err, gram_rows_check(
+                f"mo path (g) output {j}", g.kernel, torch.rand(
+                    (64, MO_G_DIM), generator=gen, device=dev), g.x))
+            form, X2, sf2, inv_l = g.kernel._fused_train_args(g.x)
+            from limbo_tpu_torch.kernels.base import effective_jitter
+
+            dadd = g.kernel.noise + effective_jitter(torch.float32) \
+                * torch.clamp(sf2, min=1.0)
+            kk = gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, g.n, form)
+            p = gp_ops.gram_train_plain(X2, sf2, inv_l, dadd, g.n, form)
+            err = max(err, check_close(
+                f"mo path (g) output {j}: gram_train {form} "
+                f"({g.capacity}, n={g.n})", kk, p, 2e-6 + 2e-5 * p.abs(),
+                "2e-6 + 2e-5|plain|"))
+            out["g"][f"errs{j}"] = check_posterior_exact(g, torch.rand(
+                (RESTARTS, MO_G_DIM), generator=gen, device=dev),
+                control_rel=MO_CONTROL_REL)
+    out["kernel_err"] = err
+    del loop, m
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2878,10 +3305,13 @@ def main() -> int:
     lite, lite_counts, at_lite, lite_data = lite_path(dev, gen)
     modes, modes_counts = modes_path(dev, gen)
     models, models_counts = models_path(dev, gen, lite_data)
+    del lite_data
+    torch.cuda.empty_cache()
+    mo, mo_counts = mo_path(dev, gen)
     by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts,
                "graph_eager_n10k": graph_e, "graph_n10k": graph_c,
                **jit_counts, **suite_counts, **lite_counts, **modes_counts,
-               **models_counts}
+               **models_counts, **mo_counts}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
              "bytes_share", "launch_floor_ms", "turns", "blocked")
@@ -2923,6 +3353,7 @@ def main() -> int:
     print(json.dumps({"lite_path": lite | {"card": card}}))
     print(json.dumps({"modes_path": modes | {"card": card}}))
     print(json.dumps({"models_path": models | {"card": card}}))
+    print(json.dumps({"mo_path": mo | {"card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

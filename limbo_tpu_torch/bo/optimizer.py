@@ -39,10 +39,12 @@ hyperparameter re-optimization via hp_period, boptimizer.hpp:163).
   ``cg_maxiter``).  ``optimize_jit`` runs the exact GP only, as the
   reference's does.
 
-Not ported yet (ROADMAP.md queue 1): ``optimize_batch`` (needs
-acqui/qei.py, item 7), which raises ``NotImplementedError``.  The
-multi-objective and constrained loops (bo/multi.py, bo/cbo.py, with
-opt/nsga2.py and opt/constrained.py) are items 7 and 8.
+* ``optimize_batch(f, ...)``, batch BO: each round proposes a joint
+  q-point batch by maximizing Monte Carlo q-EI (acqui/qei.py) and
+  evaluates all q points.  The multi-objective loops are in bo/multi.py.
+
+Not ported yet (ROADMAP.md queue 1, item 5): the constrained loop
+(bo/cbo.py, with opt/constrained.py).
 """
 
 from __future__ import annotations
@@ -73,12 +75,6 @@ class EvaluationError(Exception):
 
 # the cached-append modes of models/gp.add_sample_cached
 _FAST_UPDATES = (False, True, "refined", "linv", "deferred")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to limbo_tpu_torch yet (ROADMAP.md queue 1, "
-        f"{item})")
 
 
 def default_acqui_optimizer() -> RandomRestarts:
@@ -622,8 +618,45 @@ class BOptimizer:
                         cache=step.cache)
         return state, history
 
-    # -- not ported yet ------------------------------------------------------
+    # -- batch proposals (q-EI; no limbo counterpart) -----------------------
 
-    def optimize_batch(self, *args, **kwargs):
-        """Batch BO with q-EI proposals (limbo_tpu/bo/optimizer.py:567)."""
-        raise _not_ported("optimize_batch (q-EI, acqui/qei.py)", "item 7")
+    def optimize_batch(self, f: Callable, dim_in: int, q: int = 2,
+                       dim_out: int = 1, aggregator: Callable = FirstElem,
+                       generator: Optional[torch.Generator] = None,
+                       qei=None, restarts: int = 16,
+                       steps: int = 30) -> BOState:
+        """Batch BO (limbo_tpu/bo/optimizer.py:567-612): each round
+        proposes a joint q-point batch by maximizing Monte Carlo q-EI
+        (acqui/qei.propose_batch: ``restarts`` starts ascended together by
+        Rprop(``steps``)) and evaluates all q points, appended one by one.
+
+        Stop criteria count ROUNDS (MaxIterations(30) means 30 batches,
+        30 q evaluations); the buffers hold the init design and every
+        round's q points.  generator: the draws' torch.Generator on this
+        optimizer's device (default: seeded with 0)."""
+        from limbo_tpu_torch.acqui.qei import propose_batch
+
+        gen = self._generator(generator)
+        self._aggregator = aggregator
+        capacity = self._capacity(extra=(q - 1) * self._max_iterations())
+        gp = self._make_model(dim_in, dim_out, capacity, gen)
+        state = BOState(gp=gp, generator=gen, aggregator=aggregator)
+        X0 = self.init(gen, dim_in, dtype=self.dtype).cpu().numpy()
+        for x in X0:
+            state.gp = self._add(state.gp, x, self._checked(f(x), x))
+        state.gp = self._refit_model(state.gp)
+        while not self._stopped(state):
+            Xb, val = propose_batch(state.gp, q, gen, qei=qei,
+                                    restarts=restarts, steps=steps,
+                                    aggregator=aggregator)
+            host = torch.cat([Xb.reshape(-1), val.reshape(1)]).cpu().numpy()
+            Xb = host[:-1].reshape(q, dim_in)
+            for x in Xb:
+                state.gp = self._add(state.gp, x, self._checked(f(x), x))
+            state.gp = self._refit_model(state.gp)
+            state.last_sample = Xb
+            state.last_acqui_value = float(host[-1])
+            state.iteration += 1
+            state.total_iterations += 1
+            self._update_stats(state)
+        return state

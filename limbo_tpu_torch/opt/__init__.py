@@ -3,12 +3,11 @@ from limbo_tpu_torch.opt.cmaes import Cmaes, reflect01
 from limbo_tpu_torch.opt.compose import Chained, ParallelRepeater, RandomRestarts
 from limbo_tpu_torch.opt.direct import DirectL
 from limbo_tpu_torch.opt.gradient import Adam, GradientAscent, Rprop
+from limbo_tpu_torch.opt.nsga2 import Nsga2
 from limbo_tpu_torch.opt.search import (GridSearch, RandomPoint, RandomSweep,
                                         argmax_candidates)
 
-# Not ported yet (ROADMAP.md queue 1, item 8): Nsga2 (opt/nsga2.py) and
-# AugmentedLagrangian (opt/constrained.py).
 __all__ = ["OptResult", "clip01", "Rprop", "Adam", "GradientAscent",
            "GridSearch", "RandomPoint", "RandomSweep", "argmax_candidates",
            "ParallelRepeater", "RandomRestarts", "Chained", "Cmaes",
-           "DirectL", "reflect01"]
+           "DirectL", "Nsga2", "reflect01"]

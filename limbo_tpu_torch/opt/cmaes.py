@@ -70,7 +70,7 @@ class Cmaes:
         if self.mesh is not None or self.mesh_axis is not None:
             raise NotImplementedError(
                 "Cmaes(mesh=...) is not ported to limbo_tpu_torch yet "
-                "(ROADMAP.md queue 1, item 10)")
+                "(ROADMAP.md queue 1, item 7)")
 
     def pop(self, d: int) -> int:
         """lambda (at least 4)."""

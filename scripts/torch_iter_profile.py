@@ -28,10 +28,18 @@ With ``--lite`` the iteration is chip_smoke.py's lite path's instead
 hp path's kernel, the lite cache: Linv and a bf16 mirror, defer_m = 256),
 eager or, with ``--graph``, captured.
 
+With ``--mo RUN`` it profiles one iteration of chip_smoke.py's mo path
+run RUN instead: ``a`` (Ehvi on mop2, f64), ``d`` (Ehvi q = 2, f64),
+``e`` (Ehvi on DTLZ2 with 3 objectives, f64) or ``g`` (Ehvi in f32 at
+4096 points, d = 6) after its init design and 2 warm-up iterations, each
+traced iteration followed by the loop's closing refit; ``f`` traces one
+``propose_batch`` (q = 4, 16 restarts, Rprop(30), QEI(128)) on the
+optimize_batch state after 4096 init points and one round.
+
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 scripts/torch_iter_profile.py [--iters 10] [--trace-iters 3]
-        [--trace out/trace.json] [--graph | --hp] [--lite]
+        [--trace out/trace.json] [--graph | --hp | --mo RUN] [--lite]
 """
 
 from __future__ import annotations
@@ -58,6 +66,45 @@ def lml_step(gp):
                                            gp.x, gp.y, gp.n)
         torch.autograd.grad(v, p)
     return step
+
+
+def mo_step(which: str, dev, gen):
+    """One iteration of chip_smoke.py's mo path run `which`, warmed up;
+    returns (step, what a step is)."""
+    import chip_smoke as cs
+    from limbo_tpu_torch.acqui.qei import QEI, propose_batch
+    from limbo_tpu_torch.bo import BOptimizer, MaxIterations, RandomSampling
+    from limbo_tpu_torch.bo.multi import Ehvi
+    from limbo_tpu_torch.kernels import SquaredExpARD
+
+    if which == "f":
+        bo = BOptimizer(kernel=SquaredExpARD.create(dim=cs.BO_DIM,
+                                                    device=dev),
+                        init=RandomSampling(cs.MO_F_INIT),
+                        stop=(MaxIterations(1),), device=dev)
+        state = bo.optimize_batch(cs.hartmann6, cs.BO_DIM, q=4,
+                                  generator=gen, qei=QEI(n_samples=128))
+
+        def step():
+            propose_batch(state.gp, 4, gen, qei=QEI(n_samples=128),
+                          restarts=16, steps=30)
+        return step, "q = 4 proposals at n = 4100"
+    f64 = dict(device=dev, dtype=torch.float64)
+    runs = {"a": (dict(ref=(-1.1, -1.1), **f64), cs.mop2, 2),
+            "d": (dict(ref=(-1.1, -1.1), q=2, gh_nodes=12, **f64), cs.mop2,
+                  2),
+            "e": (dict(ref=(-1.2,) * 3, **f64), cs.dtlz2_3, 3),
+            "g": (dict(ref=(-1.1, -1.1), init=RandomSampling(cs.MO_G_INIT),
+                       dtype=torch.float32, device=dev), cs.mop2,
+                  cs.MO_G_DIM)}
+    kw, f, dim = runs[which]
+    loop = Ehvi(stop=(MaxIterations(2),), **kw)
+    loop.optimize(f, dim, generator=gen)
+
+    def step():
+        loop.stop = (MaxIterations(loop.iteration + 1),)
+        loop.optimize(f, dim, generator=gen, reset=False)
+    return step, f"Ehvi iterations of mo path ({which})"
 
 
 def trace(step, reps: int, what: str, out) -> None:
@@ -141,6 +188,8 @@ def main() -> int:
                     help="profile the captured iteration (bo/graph.BOStep)")
     ap.add_argument("--lite", action="store_true",
                     help="the lite path's iteration at n = 32,768")
+    ap.add_argument("--mo", choices=("a", "d", "e", "f", "g"),
+                    help="one iteration of a run of chip_smoke's mo path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_iter_profile: CUDA is not available", file=sys.stderr)
@@ -154,6 +203,13 @@ def main() -> int:
     _cuda.build_all()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.mo:
+        step, what = mo_step(args.mo, dev, gen)
+        step()                                                # warm-up
+        torch.cuda.synchronize()
+        trace(step, args.trace_iters, what, args.trace)
+        print(f"card: {card}")
+        return 0
     if args.hp:
         path = cs.MainPath(dev, gen, n=cs.HP_N, capacity=cs.HP_CAPACITY,
                            ell=cs.HP_ELL, noise=cs.HP_NOISE,

@@ -457,6 +457,15 @@ def test_new_option_step_equals_reference(name):
 
 
 def test_loops_not_ported_raise():
-    bo = BOptimizer(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        bo.optimize_batch(quad, D)
+    """optimize_batch is ported (tests/test_torch_qei.py holds it): here
+    it runs two rounds of q = 2; what stays unported, the optimizers'
+    multi-GPU (mesh) paths, raises naming its ROADMAP.md item."""
+    from limbo_tpu_torch.opt import Cmaes, Nsga2
+
+    bo = BOptimizer(device="cpu", stop=(tbo.MaxIterations(2),),
+                    stats_enabled=False)
+    state = bo.optimize_batch(quad, D, q=2, restarts=4, steps=5)
+    assert state.gp.n == bo.init.count + 2 * 2 and state.iteration == 2
+    for opt in (Cmaes, Nsga2):
+        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+            opt(mesh=object())

@@ -769,3 +769,64 @@ def test_cg_solve_on_the_card_against_f64(dev):
     want = torch.linalg.solve(K, w.double())
     assert float((gB.double() - want).abs().max()) <= 1e-3 * float(
         want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the multi-objective ops on the card (slice 10): ragged and padded fronts
+# ---------------------------------------------------------------------------
+
+def _mo_front(g, k, p, pad, dev):
+    """k random non-dominated points (maximization, above -0.2), the first
+    duplicated, then `pad` padded rows of garbage; (front, mask)."""
+    Y = torch.rand((4 * k + 8, p), generator=g, dtype=torch.float64,
+                   device=dev)
+    Y = Y / Y.norm(dim=1, keepdim=True)               # on the sphere: a front
+    F = Y[:k].clone()
+    if k > 1:
+        F[1] = F[0]
+    F = torch.cat([F, 2.0 + torch.rand((pad, p), generator=g,
+                                       dtype=torch.float64, device=dev)])
+    m = torch.cat([torch.ones(k, dtype=torch.float64, device=dev),
+                   torch.zeros(pad, dtype=torch.float64, device=dev)])
+    return F, m
+
+
+@pytest.mark.parametrize("p", [2, 3])
+@pytest.mark.parametrize("k,pad", [(1, 0), (7, 3), (63, 1), (64, 0),
+                                   (33, 31)])
+def test_mo_ops_on_the_card_equal_cpu(dev, p, k, pad):
+    """Pareto masks exactly, the 2-D hypervolume, exact EHVI with its
+    autograd gradient and the joint q-EHVI (q = 2, gh 8) for 64 candidates
+    on the card against the same calls on the CPU, in f64 (1e-12 relative;
+    the card's erfc and sums may round apart)."""
+    from limbo_tpu_torch.ops import ehvi, pareto
+
+    g = torch.Generator(device=dev).manual_seed(k + 100 * p)
+    F, m = _mo_front(g, k, p, pad, dev)
+    ref = torch.full((p,), -0.2, dtype=torch.float64, device=dev)
+    mu = torch.rand((64, p), generator=g, dtype=torch.float64, device=dev)
+    sg = 0.05 + 0.3 * torch.rand((64, p), generator=g, dtype=torch.float64,
+                                 device=dev)
+    Y = torch.round(torch.rand((200, p), generator=g, dtype=torch.float64,
+                               device=dev), decimals=1)
+    assert torch.equal(pareto.non_dominated_mask(Y).cpu(),
+                       pareto.non_dominated_mask(Y.cpu()))
+    assert torch.equal(pareto.non_dominated_mask(F, m).cpu(),
+                       pareto.non_dominated_mask(F.cpu(), m.cpu()))
+    if p == 2:
+        torch.testing.assert_close(pareto.hypervolume_2d(Y, ref).cpu(),
+                                   pareto.hypervolume_2d(Y.cpu(), ref.cpu()),
+                                   rtol=1e-12, atol=0)
+
+    def run(mu, sg, F, m, ref):
+        mu = mu.clone().requires_grad_(True)
+        v = ehvi.ehvi_max(mu, sg, F, ref, m)
+        (gm,) = torch.autograd.grad(v.sum(), mu)
+        cov = torch.diag_embed(sg.T[:, :2] ** 2)[None].expand(32, p, 2, 2)
+        qv = ehvi.qehvi_exact_max(mu.detach().reshape(32, 2, p), cov, F, ref,
+                                  m, gh_nodes=8)
+        return v.detach(), gm, qv
+
+    for a, b in zip(run(mu, sg, F, m, ref),
+                    run(mu.cpu(), sg.cpu(), F.cpu(), m.cpu(), ref.cpu())):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-12, atol=1e-15)
