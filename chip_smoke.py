@@ -145,7 +145,34 @@ Run from the repository root on a machine with one NVIDIA H100:
    sum; (f) and (g) hold the best observations, a finite model, the
    posterior against f64 and each launched kernel against its plain
    version on the run's state.
-14. Prints a JSON line of each path's numbers, a JSON line of per-kernel
+14. cbo path (``cbo_path``): constrained BO, IMGPO and the augmented
+   Lagrangian through their entry points.  (a) ``CBOptimizer(
+   nb_constraints=1)`` in f32 on -Hartmann6 with one constraint (feasible
+   iff sum(x) >= 2.5, which excludes the unconstrained maximizer) at bo
+   path (c)'s width: 4096 init points, 10 iterations, both GPs refitted at
+   capacity 4160 each iteration; every observation finite, best_sample
+   feasible and best_observation the largest feasible one, Pf in [0, 1],
+   both GPs' posteriors against f64 (check_posterior_exact), the launches
+   (gram_train twice an iteration, gram in every ascent step of both
+   models) and each kernel against its plain version on the run's GPs.
+   (b) ``IMGPO(max_evals=1024)`` in f32 (capacity 2048): the budget, M > 1,
+   best_value the largest, the box, one gram_train a refit, held against
+   its plain version.  (c) ``AugmentedLagrangian`` on the reference tests'
+   four problems in f32 at their tolerances: three on Rprop (no kernel),
+   one on CMA-ES (sym_eig once a generation, held against its plain
+   version on the last covariance).
+15. persist path (``persist_path``): (d) bo path (c)'s cached
+   configuration, 20 iterations, ``save_state`` (BinaryArchive),
+   ``load_state`` into a fresh template (the saved bits), 20 more with
+   ``optimize(reset=False)`` (the buffers grow to 9216 and the cache is
+   rebuilt: its launches, the posterior and each kernel against its plain
+   version); (e) ``BOptimizer()`` at its defaults, 15 iterations, a
+   checkpoint and 15 more against 30 in one run: the same bits; (f) (d)'s
+   GP through TextArchive: the same bits and query bits; (g) the CLI:
+   ``create`` (4096 init points, 10 iterations) under build/, ``run-local``
+   of two replicates at once on the card (exit codes 0, finite stats
+   rows), ``params`` with an override, a bad override (exit code 2).
+16. Prints a JSON line of each path's numbers, a JSON line of per-kernel
    numbers, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -225,6 +252,24 @@ MO_G_INIT, MO_G_ITERS, MO_G_DIM = 4096, 5, 6
 # its f32 move (sound 4.69; PERF.md, mo path), so the control moves them by
 # 2^-8; the limit is BO_SLACK as elsewhere
 MO_CONTROL_REL = 2.0 ** -8
+# slice 11.  The cbo path: (a) CBOptimizer in f32 at bo path (c)'s width
+# (4096 init points, capacity 4160 by the reference's rule) on -Hartmann6
+# with one constraint, feasible iff sum(x) >= CBO_SUM; (b) IMGPO at
+# IMGPO_EVALS evaluations (capacity 2048); (c) the augmented Lagrangian.
+# The persist path: (d) bo path (c)'s cached configuration, PERSIST_ITERS
+# iterations, a checkpoint and PERSIST_ITERS more; (e) the defaults,
+# PERSIST_E_ITERS twice against once in one run; (g) the CLI's experiment
+# at CLI_SAMPLES init points, CLI_RUNS replicates at once
+CBO_INIT, CBO_ITERS, CBO_SUM = 4096, 10, 2.5
+# the posterior controls of (a): the objective GP's inputs moved by
+# MO_CONTROL_REL, the constraint GP's by 2^-7: its 0/1 observations under
+# an Exp kernel with l = 1 leave its mean flat in its inputs, and a 2^-8
+# move read 25.6 to 109 of the limit's 32 units over 8 seeds
+# (scripts/torch_cbo_spread.py, PERF.md)
+CBO_CONTROL_REL = {"objective": MO_CONTROL_REL, "constraint": 2.0 ** -7}
+IMGPO_EVALS = 1024
+PERSIST_ITERS, PERSIST_E_ITERS = 20, 15
+CLI_SAMPLES, CLI_ITERS, CLI_RUNS = 4096, 10, 2
 # the launches of one 190-iteration run of each variant: the sweep's gram
 # (1024 x 256 = 512^2) once an iteration where the ascent maximizes (the
 # ascent's 64 x 256 and the hp-opt at capacity 256 stay under the kernels'
@@ -630,14 +675,15 @@ def mirror_rows(dev, gen, Xs, K, N):
 def posterior_f64(gp, Xq, rel: float = 0.0, dist: bool = False):
     """The exact posterior of the stored data in f64 (plain Cholesky, no
     cache, none of the port's code): mean and latent variance at Xq, for
-    SquaredExpARD (rank 0) and MaternFiveHalves with DataMean or
-    NullMean.  With ``rel`` > 0, every input (the data, the queries and
+    SquaredExpARD (rank 0), MaternFiveHalves and Exp with DataMean,
+    NullMean or ConstantMean.  With ``rel`` > 0, every input (the data, the queries and
     the kernel's parameters) is first multiplied by 1 + rel e, and with
     ``dist`` every squared distance is moved by rel e (|a|^2 + |b|^2), the
     size of the terms of the expanded form |a|^2 + |b|^2 - 2 a.b the
     kernels compute (utils/maths.sq_dist); e is uniform in [-1, 1] from a
     fixed seed."""
-    from limbo_tpu_torch.kernels import MaternFiveHalves, SquaredExpARD
+    from limbo_tpu_torch.kernels import Exp, MaternFiveHalves, SquaredExpARD
+    from limbo_tpu_torch.means import ConstantMean, NullMean
 
     g = torch.Generator().manual_seed(1)
 
@@ -680,6 +726,11 @@ def posterior_f64(gp, Xq, rel: float = 0.0, dist: bool = False):
         def cov(A, B, sym=False):
             return sq(A * inv_ell, B * inv_ell, sym).mul_(-0.5).exp_() \
                 .mul_(sf2)
+    elif isinstance(k, Exp):
+        inv_l = 1.0 / r(torch.exp(k.log_l.double()))
+
+        def cov(A, B, sym=False):
+            return sq(A * inv_l, B * inv_l, sym).mul_(-0.5).exp_().mul_(sf2)
     elif isinstance(k, MaternFiveHalves):
         ell = r(torch.exp(k.log_l.double()))
 
@@ -693,10 +744,12 @@ def posterior_f64(gp, Xq, rel: float = 0.0, dist: bool = False):
     K.diagonal().add_(dadd)
     Lc = torch.linalg.cholesky(K)
     del K
-    from limbo_tpu_torch.means import NullMean
-
-    # DataMean's mean of the data; a MultiGP's outputs carry a NullMean
-    ybar = 0.0 if isinstance(gp.mean, NullMean) else Y.mean(dim=0)
+    # DataMean's mean of the data; a MultiGP's outputs carry a NullMean;
+    # the constraint model of the cbo path a ConstantMean
+    if isinstance(gp.mean, ConstantMean):
+        ybar = r(gp.mean.value)
+    else:
+        ybar = 0.0 if isinstance(gp.mean, NullMean) else Y.mean(dim=0)
     alpha = torch.cholesky_solve(Y - ybar, Lc)
     ks = cov(Qs, X)
     mu = ks @ alpha + ybar
@@ -1333,7 +1386,7 @@ def model_fields(model) -> dict:
 
 
 def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM,
-           n_final=None):
+           n_final=None, path: str = "bo path"):
     """One BOptimizer.optimize run on the card with the launch counts set to
     0 just before it and read just after; checks the run's result (best
     value, samples in the box, finite model; ``n_final`` samples in the
@@ -1354,7 +1407,7 @@ def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM,
     setup, loop = clock.t - t0, t1 - clock.t
     n = state.gp.n
     per = {k: v / iters for k, v in launches.items() if v}
-    log(f"bo path ({name}): set-up {setup:.3f} s ({bo.init.count} init "
+    log(f"{path} ({name}): set-up {setup:.3f} s ({bo.init.count} init "
         f"points, capacity {state.gp.capacity}), {iters} iterations "
         f"{loop:.3f} s = {iters / loop:.3f} iters/s; best "
         f"{state.best_value:.6f} (the optimum 3.32237)")
@@ -1363,10 +1416,10 @@ def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM,
     if n_final is None:
         n_final = bo.init.count + iters
     if state.iteration != iters or n != n_final:
-        raise AssertionError(f"bo path ({name}): {state.iteration} "
+        raise AssertionError(f"{path} ({name}): {state.iteration} "
                              f"iterations, {n} samples")
     if len(f.ys) != bo.init.count + iters:
-        raise AssertionError(f"bo path ({name}): {len(f.ys)} evaluations "
+        raise AssertionError(f"{path} ({name}): {len(f.ys)} evaluations "
                              f"for {n} samples")
     # the GP stores observations in f32: the best of the f32 roundings is
     # the rounding of the best
@@ -1378,13 +1431,13 @@ def bo_run(name: str, bo, dev, gen, iters: int, dim: int = BO_DIM,
                          == state.gp.x[:n]).all(dim=1).any())]
         best = float(torch.tensor(max(kept), dtype=torch.float32))
     if state.best_value != best:
-        raise AssertionError(f"bo path ({name}): best_value "
+        raise AssertionError(f"{path} ({name}): best_value "
                              f"{state.best_value} != max(observed) {best}")
     X = torch.stack([torch.from_numpy(x) for x in f.xs])
     if not (bool(((X >= 0) & (X <= 1)).all())
             and bool(((state.gp.x[:n] >= 0) & (state.gp.x[:n] <= 1)).all())):
-        raise AssertionError(f"bo path ({name}): a sample outside [0, 1]^6")
-    check_finite(f"bo path ({name})", **model_fields(state.gp))
+        raise AssertionError(f"{path} ({name}): a sample outside [0, 1]^6")
+    check_finite(f"{path} ({name})", **model_fields(state.gp))
     log(f"  best_value == max(observed), {n} samples in [0, 1]^{dim}, "
         f"model finite: ok")
     return state, launches, dict(setup_s=setup, loop_s=loop,
@@ -3100,7 +3153,6 @@ def mo_path(dev, gen):
     from limbo_tpu_torch.bo.multi import Ehvi, Nsbo, Parego
     from limbo_tpu_torch.kernels import SquaredExpARD
     from limbo_tpu_torch.ops import _cuda
-    from limbo_tpu_torch.ops import gram_pallas as gp_ops
     from limbo_tpu_torch.ops.ehvi import qehvi_exact_max
     from limbo_tpu_torch.opt import Nsga2
 
@@ -3252,22 +3304,502 @@ def mo_path(dev, gen):
             err = max(err, gram_rows_check(
                 f"mo path (g) output {j}", g.kernel, torch.rand(
                     (64, MO_G_DIM), generator=gen, device=dev), g.x))
-            form, X2, sf2, inv_l = g.kernel._fused_train_args(g.x)
-            from limbo_tpu_torch.kernels.base import effective_jitter
-
-            dadd = g.kernel.noise + effective_jitter(torch.float32) \
-                * torch.clamp(sf2, min=1.0)
-            kk = gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, g.n, form)
-            p = gp_ops.gram_train_plain(X2, sf2, inv_l, dadd, g.n, form)
-            err = max(err, check_close(
-                f"mo path (g) output {j}: gram_train {form} "
-                f"({g.capacity}, n={g.n})", kk, p, 2e-6 + 2e-5 * p.abs(),
-                "2e-6 + 2e-5|plain|"))
+            err = max(err, gram_train_check(f"mo path (g) output {j}", g))
             out["g"][f"errs{j}"] = check_posterior_exact(g, torch.rand(
                 (RESTARTS, MO_G_DIM), generator=gen, device=dev),
                 control_rel=MO_CONTROL_REL)
     out["kernel_err"] = err
     del loop, m
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def cbo_objective(x):
+    """The cbo path's objective: -Hartmann6 and one constraint, 1
+    (feasible) iff sum(x) >= CBO_SUM, which excludes Hartmann6's
+    unconstrained maximizer (it sums to ~2.07)."""
+    return np.concatenate([hartmann6(x),
+                           [1.0 if float(np.sum(x)) >= CBO_SUM else 0.0]])
+
+
+def gram_train_check(where: str, gp) -> float:
+    """gram_train of the stored x at its n (the kernel's own form) against
+    its plain version, at the kernel phase's tolerance."""
+    from limbo_tpu_torch.kernels.base import effective_jitter
+    from limbo_tpu_torch.ops import gram_pallas as gp_ops
+
+    k = gp.kernel
+    form, X2, sf2, inv_l = k._fused_train_args(gp.x)
+    dadd = k.noise + effective_jitter(torch.float32) * torch.clamp(sf2,
+                                                                   min=1.0)
+    kk = gp_ops.gram_train_pallas(X2, sf2, inv_l, dadd, gp.n, form)
+    p = gp_ops.gram_train_plain(X2, sf2, inv_l, dadd, gp.n, form)
+    return check_close(f"{where}: gram_train {form} ({gp.capacity}, "
+                       f"n={gp.n})", kk, p, 2e-6 + 2e-5 * p.abs(),
+                       "2e-6 + 2e-5|plain|")
+
+
+def cbo_path(dev, gen):
+    """Constrained BO, IMGPO and the augmented Lagrangian through their
+    entry points (slice 11).  (a) CBOptimizer(nb_constraints=1, f32) on
+    cbo_objective at bo path (c)'s width: CBO_INIT init points, CBO_ITERS
+    iterations, both GPs refitted from scratch each iteration at capacity
+    4160 (Matern-5/2 + DataMean and Exp + ConstantMean(1)), ECI maximized
+    by 64 x Rprop(20) from a 1024-point sweep; every observation finite,
+    best_sample feasible and best_observation the largest feasible one,
+    Pf in [0, 1], both GPs' posteriors against f64 (check_posterior_exact,
+    the inputs of the controls moved by CBO_CONTROL_REL), gram_train twice an
+    iteration and gram in every ascent step of both models, each held
+    against its plain version on the run's GPs.  (b) IMGPO(max_evals=
+    IMGPO_EVALS, f32) on -Hartmann6 (capacity 2048): at most IMGPO_EVALS
+    evaluations, M > 1, best_value the largest, the samples in the box,
+    one gram_train a refit, held against its plain version.  (c)
+    AugmentedLagrangian on tests/test_optimizers.py's four problems in
+    f32: three with Rprop(150) from 5 starts of the generator (no kernel),
+    at the reference tests' tolerances; the fourth with a Cmaes(60, 16)
+    sub-optimizer, whose eigendecompositions are sym_eig launches (one a
+    generation), the kernel held against its plain version on the last
+    covariance."""
+    from limbo_tpu_torch.bo import MaxIterations, RandomSampling
+    from limbo_tpu_torch.bo.cbo import ECI, CBOptimizer
+    from limbo_tpu_torch.bo.imgpo import IMGPO
+    from limbo_tpu_torch.ops import _cuda
+    from limbo_tpu_torch.opt import AugmentedLagrangian, Cmaes, Rprop
+
+    out, counts, err = {}, {}, 0.0
+
+    # (a) CBOptimizer at 4096 points
+    rec = _Recorded(cbo_objective)
+    bo = CBOptimizer(nb_constraints=1, init=RandomSampling(CBO_INIT),
+                     stop=(MaxIterations(CBO_ITERS),), dtype=torch.float32,
+                     device=dev)
+    fit, t_fit = bo.fit, []
+
+    def timed_fit(capacity):
+        if not t_fit:                 # the end of the set-up: the init design
+            torch.cuda.synchronize()
+            t_fit.append(time.perf_counter())
+        return fit(capacity)
+
+    bo.fit = timed_fit
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    bo.optimize(rec, BO_DIM, generator=gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts["cbo_a"] = dict(_cuda.LAUNCHES)
+    setup, loop_s = t_fit[0] - t0, t1 - t_fit[0]
+    n = CBO_INIT + CBO_ITERS
+    obs = np.stack(rec.obs)
+    feas = obs[:, 1] == 1.0
+    log(f"cbo path (a, CBOptimizer): set-up {setup:.3f} s ({CBO_INIT} init "
+        f"points), {CBO_ITERS} iterations {loop_s:.3f} s = "
+        f"{CBO_ITERS / loop_s:.3f} iters/s; {int(feas.sum())} of {n} "
+        f"feasible; best feasible {float(bo.best_observation[0]):.6f} at "
+        f"sum(x) = {float(np.sum(bo.best_sample)):.4f}; launches "
+        f"{ {k: v for k, v in counts['cbo_a'].items() if v} }")
+    if len(bo.X) != n or obs.shape != (n, 2) or not np.isfinite(obs).all():
+        raise AssertionError("cbo path (a): observations missing or not "
+                             "finite")
+    if not (float(np.sum(bo.best_sample)) >= CBO_SUM
+            and bo._feasible_mask().sum() == feas.sum()):
+        raise AssertionError("cbo path (a): best_sample is not feasible")
+    if float(bo.best_observation[0]) != float(obs[feas, 0].max()):
+        raise AssertionError("cbo path (a): best_observation is not the "
+                             "largest feasible observation")
+    X = np.stack(bo.X)
+    if not ((X >= 0) & (X <= 1)).all():
+        raise AssertionError("cbo path (a): a sample outside [0, 1]^6")
+    check_counts("cbo path (a)", counts["cbo_a"], {
+        "gram_train": (2 * CBO_ITERS, 2 * CBO_ITERS),
+        "gram": (2 * (STEPS + 2) * CBO_ITERS, None)})
+    out["a"] = dict(setup_s=setup, loop_s=loop_s, iters=CBO_ITERS,
+                    iters_per_s=CBO_ITERS / loop_s,
+                    best=float(bo.best_observation[0]),
+                    feasible=int(feas.sum()),
+                    launches_per_iter={k: v / CBO_ITERS for k, v in
+                                       counts["cbo_a"].items() if v})
+    with uncounted():
+        cap = max(64, -(-(CBO_INIT + CBO_ITERS + 1) // 64) * 64)
+        model, cmodel = fit(cap)
+        if model.n != n or cmodel.n != n:
+            raise AssertionError(f"cbo path (a): {model.n} samples")
+        Xq = torch.rand((RESTARTS, BO_DIM), generator=gen, device=dev)
+        with torch.no_grad():
+            pf = torch.cat([ECI.feasibility(cmodel, Xq),
+                            ECI.feasibility(cmodel, model.x[:n])])
+        log(f"  Pf over {pf.numel()} points in [{float(pf.min()):.4f}, "
+            f"{float(pf.max()):.4f}]")
+        if not bool(((pf >= 0) & (pf <= 1)).all()):
+            raise AssertionError("cbo path (a): Pf outside [0, 1]")
+        for name, g in (("objective", model), ("constraint", cmodel)):
+            where = f"cbo path (a) {name} GP"
+            err = max(err, bo_kernel_checks(where, g, None, gen, dev),
+                      gram_train_check(where, g))
+            out["a"][f"errs_{name}"] = check_posterior_exact(
+                g, Xq, control_rel=CBO_CONTROL_REL[name])
+    del model, cmodel, bo
+    torch.cuda.empty_cache()
+
+    # (b) IMGPO at 1024 evaluations
+    opt = IMGPO(max_evals=IMGPO_EVALS, dtype=torch.float32, device=dev)
+    fit, fits = opt._fit_gp, []
+
+    def counted_fit(capacity):
+        fits.append(capacity)
+        return fit(capacity)
+
+    opt._fit_gp = counted_fit
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    opt.optimize(hartmann6, BO_DIM)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts["cbo_b"] = dict(_cuda.LAUNCHES)
+    Y = np.asarray(opt.Y)
+    log(f"cbo path (b, IMGPO): {len(Y)} evaluations, {len(fits)} refits "
+        f"(capacity {fits[0]}) in {secs:.3f} s = {len(Y) / secs:.2f} "
+        f"evaluations/s; M = {opt.M}; best {opt.best_value:.6f} (the "
+        f"optimum 3.32237); launches "
+        f"{ {k: v for k, v in counts['cbo_b'].items() if v} }")
+    X = np.stack(opt.X)
+    if not (len(Y) <= IMGPO_EVALS and opt.M > 1
+            and opt.best_value == float(Y.max())
+            and ((X >= 0) & (X <= 1)).all() and np.isfinite(Y).all()):
+        raise AssertionError("cbo path (b): IMGPO's budget, M, best value or "
+                             "box")
+    check_counts("cbo path (b)", counts["cbo_b"], {
+        "gram_train": (len(fits), len(fits))})
+    out["b"] = dict(seconds=secs, evaluations=len(Y), refits=len(fits),
+                    evals_per_s=len(Y) / secs, M=opt.M,
+                    best=opt.best_value)
+    with uncounted():
+        err = max(err, gram_train_check("cbo path (b) IMGPO's GP",
+                                         fit(fits[0])))
+    del opt
+
+    # (c) the augmented Lagrangian, f32
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def sq(X):
+        return -X[:, 0] ** 2 - X[:, 1] ** 2
+
+    problems = (
+        ("equality", 12, "eq", lambda X: X[:, 0] + 3.0 * X[:, 1] - 10.0, sq,
+         None, (1.0, 3.0), 1e-4),
+        ("inequality", 12, "in", lambda X: -X[:, 0] - 3.0 * X[:, 1] + 10.0,
+         sq, None, (1.0, 3.0), 1e-3),
+        ("inactive", 8, "in", lambda X: X[:, 0] + X[:, 1] - 100.0,
+         lambda X: -torch.sum((X - 0.5) ** 2, dim=1), [[3.0, -2.0]],
+         (0.5, 0.5), 1e-5))
+    out["c"] = {}
+    for name, outer, kind, c, f, starts, sol, tol in problems:
+        al = AugmentedLagrangian(sub=Rprop(iterations=150),
+                                 outer_iterations=outer)
+        al = (al.add_equality_constraint(c) if kind == "eq"
+              else al.add_inequality_constraint(c))
+        X0 = (torch.tensor(starts, **f32) if starts is not None
+              else torch.rand((5, 2), generator=gen, **f32))
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = al(f, X0, gen, False)
+        x = res.x.cpu().numpy()
+        secs = time.perf_counter() - t0
+        counts[f"cbo_c_{name}"] = dict(_cuda.LAUNCHES)
+        best = min(x, key=lambda v: np.linalg.norm(v - np.asarray(sol)))
+        log(f"cbo path (c, AugmentedLagrangian {name}, Rprop(150) x "
+            f"{outer}, {len(x)} starts): best {best.tolist()} in "
+            f"{secs:.3f} s (solution {list(sol)}, tolerance {tol})")
+        if not np.all(np.abs(best - np.asarray(sol)) <= tol):
+            raise AssertionError(f"cbo path (c) {name}: {best} is not the "
+                                 f"solution {sol} within {tol}")
+        check_counts(f"cbo path (c) {name}", counts[f"cbo_c_{name}"],
+                     {k: (0, 0) for k in _cuda.LAUNCHES})
+        out["c"][name] = dict(best=best.tolist(), seconds=secs)
+    class RecordedCmaes(Cmaes):
+        """Keeps the last covariance it decomposed, to hold the
+        eigensolver kernel against its plain version on it."""
+
+        C = None
+
+        def generation(self, fun, s, z, bounded=True):
+            self.C = s.C
+            return super().generation(fun, s, z, bounded)
+
+    sub = RecordedCmaes(iterations=60, pop_size=16)
+    al = AugmentedLagrangian(sub=sub, outer_iterations=6)
+    al = al.add_equality_constraint(lambda X: X[:, 0] + X[:, 1] - 1.0)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = al(lambda X: -torch.sum(X ** 2, dim=1),
+             torch.tensor([0.9, 0.9], **f32), gen, True)
+    x = res.x.cpu().numpy()
+    secs = time.perf_counter() - t0
+    counts["cbo_c_cmaes"] = dict(_cuda.LAUNCHES)
+    log(f"cbo path (c, AugmentedLagrangian equality, Cmaes(60, 16) x 6): "
+        f"{x.tolist()} in {secs:.3f} s (solution [0.5, 0.5], tolerance "
+        f"5e-2); launches {counts['cbo_c_cmaes']}")
+    if not np.all(np.abs(x - 0.5) <= 5e-2):
+        raise AssertionError(f"cbo path (c) cmaes: {x}")
+    check_counts("cbo path (c) cmaes", counts["cbo_c_cmaes"], {
+        "sym_eig": (6 * 60, 6 * 60),
+        **{k: (0, 0) for k in _cuda.LAUNCHES if k != "sym_eig"}})
+    out["c"]["cmaes"] = dict(x=x.tolist(), seconds=secs)
+    with uncounted():
+        out["c"]["sym_eig"] = sym_eig_entry(sub.C)
+        err = max(err, out["c"]["sym_eig"]["max_abs_err"])
+    out["kernel_err"] = err
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def persist_path(dev, gen):
+    """Persistence and tooling (slice 11).  (d) bo path (c)'s cached
+    configuration (SquaredExpARD, 4096 init points, capacity 5120, deferred
+    appends, a bf16 mirror, a rebuild every BO_C_REFRESH) for
+    PERSIST_ITERS iterations; save_state with BinaryArchive, load_state
+    into a fresh template (x, y, L, alpha and n the saved bits, the
+    counters), and PERSIST_ITERS more with optimize(reset=False): the
+    resume grows the buffers (the capacity rule counts the stored samples
+    again) and rebuilds the cache, whose launches (tri-inv, trimv, the
+    mirror, gram) are held, with the posterior (check_posterior) and each
+    kernel against its plain version on the resumed state.  (e)
+    BOptimizer() at its defaults from one seed: PERSIST_E_ITERS
+    iterations, a checkpoint, a load and PERSIST_E_ITERS more must propose
+    the points of one 2 x PERSIST_E_ITERS-iteration run, bit for bit.  (f)
+    The GP saved in (d), through TextArchive and back: the same bits and
+    the same query bits.  (g) The CLI: ``create`` an experiment of
+    CLI_SAMPLES init points and CLI_ITERS iterations under build/,
+    ``run-local`` CLI_RUNS replicates at once (exit codes 0, each
+    replicate's stats files with finite rows), ``params`` with an
+    override, and a bad override (exit code 2)."""
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    from limbo_tpu_torch.bo import BOptimizer, MaxIterations, RandomSampling
+    from limbo_tpu_torch.bo.checkpoint import load_state, save_state
+    from limbo_tpu_torch.kernels import SquaredExpARD
+    from limbo_tpu_torch.means import DataMean
+    from limbo_tpu_torch.models import gp as gp_mod
+    from limbo_tpu_torch.ops import _cuda
+    from limbo_tpu_torch.utils.serialize import TextArchive, load_gp, save_gp
+
+    out, counts, err = {}, {}, 0.0
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_persist"
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (d) the cached configuration: 20 iterations, a checkpoint, 20 more
+    def cached(iters):
+        return BOptimizer(
+            kernel=SquaredExpARD.create(dim=BO_DIM, device=dev),
+            init=RandomSampling(BO_C_INIT), stop=(MaxIterations(iters),),
+            use_query_cache=True, cache_fast_update="deferred",
+            cache_query_dtype=torch.bfloat16,
+            cache_refresh_period=BO_C_REFRESH, device=dev)
+
+    bo = cached(PERSIST_ITERS)
+    state, counts["persist_d1"], out["d1"] = bo_run(
+        "d, cached, before the checkpoint", bo, dev, gen, PERSIST_ITERS,
+        path="persist path")
+    t0 = time.perf_counter()
+    save_state(state, str(root / "binary"))
+    t1 = time.perf_counter()
+
+    def template(capacity):
+        return gp_mod.empty(SquaredExpARD.create(dim=BO_DIM, device=dev),
+                            DataMean.create(device=dev), BO_DIM,
+                            capacity=capacity, device=dev)
+
+    restored = load_state(template(state.gp.capacity), str(root / "binary"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = {k: same_bits(getattr(restored.gp, k), getattr(state.gp, k))
+            for k in ("x", "y", "L", "alpha")}
+    log(f"persist path (d): save_state {t1 - t0:.3f} s, load_state "
+        f"{t2 - t1:.3f} s (capacity {state.gp.capacity}, n = "
+        f"{state.gp.n}); the saved bits: {same}")
+    if not (all(same.values()) and restored.gp.n == state.gp.n
+            and int(restored.gp.n_dev) == state.gp.n
+            and restored.total_iterations == PERSIST_ITERS
+            and torch.equal(restored.generator.get_state(),
+                            state.generator.get_state())):
+        raise AssertionError("persist path (d): the loaded state is not the "
+                             "saved one")
+    out["d1"].update(save_s=t1 - t0, load_s=t2 - t1)
+
+    # (f) the same GP through TextArchive
+    t0 = time.perf_counter()
+    save_gp(state.gp, str(root / "text"), archive=TextArchive)
+    t1 = time.perf_counter()
+    text_gp = load_gp(template(state.gp.capacity), str(root / "text"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    Xq = torch.rand((RESTARTS, BO_DIM), generator=gen, device=dev)
+    with torch.no_grad():
+        q0, q1 = gp_mod.query(state.gp, Xq), gp_mod.query(text_gp, Xq)
+    same = {k: same_bits(getattr(text_gp, k), getattr(state.gp, k))
+            for k in ("x", "y", "L", "alpha")}
+    same["query"] = all(same_bits(a, b) for a, b in zip(q0, q1))
+    log(f"persist path (f): TextArchive save {t1 - t0:.3f} s, load "
+        f"{t2 - t1:.3f} s; the same bits: {same}")
+    if not all(same.values()):
+        raise AssertionError("persist path (f): the text archive changed "
+                             "the GP")
+    out["f"] = dict(save_s=t1 - t0, load_s=t2 - t1)
+    del text_gp, state
+    shutil.rmtree(root / "text")
+
+    y_saved = float(restored.gp.y[:restored.gp.n, 0].max())
+    rec = _Recorded(hartmann6)
+    clock = _SetupClock()
+    bo.stop = (MaxIterations(PERSIST_ITERS), clock)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    state = bo.optimize(rec, BO_DIM, reset=False, state=restored,
+                        generator=restored.generator)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts["persist_d2"] = dict(_cuda.LAUNCHES)
+    gp, cache = state.gp, state.cache
+    setup, loop_s = clock.t - t0, t1 - clock.t
+    n = BO_C_INIT + 2 * PERSIST_ITERS
+    log(f"persist path (d, resumed): set-up {setup:.3f} s (capacity "
+        f"{gp.capacity}, the cache rebuilt), {PERSIST_ITERS} iterations "
+        f"{loop_s:.3f} s = {PERSIST_ITERS / loop_s:.3f} iters/s; best "
+        f"{state.best_value:.6f}; launches "
+        f"{ {k: v for k, v in counts['persist_d2'].items() if v} }")
+    if not (state.total_iterations == 2 * PERSIST_ITERS and gp.n == n
+            and len(rec.ys) == PERSIST_ITERS):
+        raise AssertionError(f"persist path (d): {state.total_iterations} "
+                             f"iterations, {gp.n} samples")
+    # the best of the saved observations and of the f32 roundings of the
+    # resumed run's
+    best = max(y_saved, float(torch.tensor(max(rec.ys),
+                                           dtype=torch.float32)))
+    if state.best_value != best:
+        raise AssertionError("persist path (d): best_value is not the "
+                             "largest observation")
+    check_finite("persist path (d)", L=gp.L, alpha=gp.alpha,
+                 Linv=cache.Linv, Kinv=cache.Kinv,
+                 Kinv_q=cache.Kinv_q.float())
+    check_counts("persist path (d)", counts["persist_d2"], {
+        "tri_inv_panel": (1, None), "gram_train": (1, None),
+        "trimv": (2 * PERSIST_ITERS, 2 * PERSIST_ITERS),
+        "gram": ((STEPS + 2) * PERSIST_ITERS, None),
+        "mirror_mm": ((STEPS + 2) * PERSIST_ITERS, None)})
+    out["d2"] = dict(setup_s=setup, loop_s=loop_s,
+                     iters_per_s=PERSIST_ITERS / loop_s,
+                     capacity=gp.capacity, best=state.best_value,
+                     launches_per_iter={k: v / PERSIST_ITERS for k, v in
+                                        counts["persist_d2"].items() if v})
+    with uncounted():
+        err = max(err, bo_kernel_checks("persist path (d)", gp, cache, gen,
+                                        dev))
+        out["d2"]["errs"] = check_posterior(gp, cache, torch.rand(
+            (RESTARTS, BO_DIM), generator=gen, device=dev))
+    del state, gp, cache, bo, restored
+    torch.cuda.empty_cache()
+
+    # (e) the defaults: 15 + checkpoint + 15 against 30 in one go
+    seed = int(torch.randint(0, 2 ** 31, (1,), generator=gen, device=dev))
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    bo = BOptimizer(stop=(MaxIterations(PERSIST_E_ITERS),), device=dev)
+    first = bo.optimize(hartmann6, BO_DIM, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    save_state(first, str(root / "defaults"))
+    restored = load_state(bo._make_gp(BO_DIM, 1, first.gp.capacity),
+                          str(root / "defaults"))
+    resumed = bo.optimize(hartmann6, BO_DIM, reset=False, state=restored,
+                          generator=restored.generator)
+    whole = BOptimizer(stop=(MaxIterations(2 * PERSIST_E_ITERS),),
+                       device=dev).optimize(
+        hartmann6, BO_DIM, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts["persist_e"] = dict(_cuda.LAUNCHES)
+    n = bo.init.count + 2 * PERSIST_E_ITERS
+    same = {k: same_bits(getattr(resumed.gp, k), getattr(whole.gp, k))
+            for k in ("x", "y", "L", "alpha")}
+    log(f"persist path (e, the defaults): {PERSIST_E_ITERS} + checkpoint + "
+        f"{PERSIST_E_ITERS} against {2 * PERSIST_E_ITERS} in one run "
+        f"(seed {seed}), {secs:.3f} s for both: n = {resumed.gp.n} and "
+        f"{whole.gp.n}, capacity {resumed.gp.capacity} and "
+        f"{whole.gp.capacity}; the same bits: {same}; launches "
+        f"{ {k: v for k, v in counts['persist_e'].items() if v} }")
+    if not (all(same.values()) and resumed.gp.n == whole.gp.n == n
+            and resumed.total_iterations == 2 * PERSIST_E_ITERS):
+        raise AssertionError("persist path (e): the resumed run proposed "
+                             "other points than the uninterrupted one")
+    check_counts("persist path (e)", counts["persist_e"],
+                 {"gram": (4 * PERSIST_E_ITERS, None)})
+    out["e"] = dict(seconds=secs, seed=seed)
+    del first, restored, resumed, whole, bo
+
+    # (g) the CLI: create, run-local with 2 replicates at once, params
+    from limbo_tpu_torch.cli import main as cli_main
+
+    base = root / "cli"
+    cli = [sys.executable, "-m", "limbo_tpu_torch.cli"]
+    subprocess.run(cli + ["create", "--name", "smoke", "--base-dir",
+                          str(base / "exp"), "--dim_in", str(BO_DIM),
+                          "--samples", str(CLI_SAMPLES), "--iterations",
+                          str(CLI_ITERS)], check=True, timeout=120)
+    conf = json.loads((base / "exp" / "smoke" / "conf.json").read_text())
+    conf.update(nb_runs=CLI_RUNS, res_dir=str(base / "results"))
+    (base / "conf.json").write_text(json.dumps(conf))
+    t0 = time.perf_counter()
+    run = subprocess.run(cli + ["run-local", str(base / "conf.json"),
+                                "--parallel", str(CLI_RUNS)],
+                         capture_output=True, text=True, timeout=400)
+    secs = time.perf_counter() - t0
+    log(f"persist path (g, CLI): run-local of {CLI_RUNS} replicates at once "
+        f"({CLI_SAMPLES} init points, {CLI_ITERS} iterations each): "
+        f"{secs:.3f} s, rc {run.returncode}: {run.stdout.strip()}")
+    want = f"exit codes: {[0] * CLI_RUNS}"
+    if run.returncode != 0 or want not in run.stdout:
+        for rep in range(CLI_RUNS):
+            log((base / "results" / f"smoke_{rep}.log").read_text()[-3000:])
+        raise AssertionError("persist path (g): a replicate failed")
+    runs = sorted(p for p in (base / "results").iterdir() if p.is_dir())
+    if len(runs) != CLI_RUNS:
+        raise AssertionError(f"persist path (g): {len(runs)} result dirs")
+    for r in runs:
+        for name in ("samples", "observations", "best_observations",
+                     "best_aggregated_observations"):
+            rows = np.loadtxt(r / f"{name}.dat", ndmin=2)
+            if rows.shape[0] != CLI_ITERS or not np.isfinite(rows).all():
+                raise AssertionError(f"persist path (g): {r.name}/{name}"
+                                     f".dat has {rows.shape[0]} rows or "
+                                     "non-finite ones")
+    log(f"  {CLI_RUNS} result dirs, each with {CLI_ITERS} finite rows in "
+        f"samples, observations, best_observations and "
+        f"best_aggregated_observations: ok")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli_main(["params", "--acqui_ucb.alpha=0.9"])
+    if "acqui_ucb.alpha = 0.9" not in text.getvalue():
+        raise AssertionError("persist path (g): params lost the override")
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli_main(["params", "--acqui_ucb.no_such=1"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    log(f"  params --acqui_ucb.alpha=0.9 prints the override; a bad "
+        f"override exits with {code}")
+    if code != 2:
+        raise AssertionError("persist path (g): a bad override did not exit "
+                             "with code 2")
+    out["g"] = dict(run_local_s=secs, replicates=CLI_RUNS)
+    shutil.rmtree(root, ignore_errors=True)
+    out["kernel_err"] = err
     torch.cuda.empty_cache()
     return out, counts
 
@@ -3308,10 +3840,13 @@ def main() -> int:
     del lite_data
     torch.cuda.empty_cache()
     mo, mo_counts = mo_path(dev, gen)
+    cbo, cbo_counts = cbo_path(dev, gen)
+    persist, persist_counts = persist_path(dev, gen)
     by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts,
                "graph_eager_n10k": graph_e, "graph_n10k": graph_c,
                **jit_counts, **suite_counts, **lite_counts, **modes_counts,
-               **models_counts, **mo_counts}
+               **models_counts, **mo_counts, **cbo_counts,
+               **persist_counts}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
              "bytes_share", "launch_floor_ms", "turns", "blocked")
@@ -3354,6 +3889,8 @@ def main() -> int:
     print(json.dumps({"modes_path": modes | {"card": card}}))
     print(json.dumps({"models_path": models | {"card": card}}))
     print(json.dumps({"mo_path": mo | {"card": card}}))
+    print(json.dumps({"cbo_path": cbo | {"card": card}}))
+    print(json.dumps({"persist_path": persist | {"card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

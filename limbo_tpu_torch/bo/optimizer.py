@@ -43,8 +43,8 @@ hyperparameter re-optimization via hp_period, boptimizer.hpp:163).
   q-point batch by maximizing Monte Carlo q-EI (acqui/qei.py) and
   evaluates all q points.  The multi-objective loops are in bo/multi.py.
 
-Not ported yet (ROADMAP.md queue 1, item 5): the constrained loop
-(bo/cbo.py, with opt/constrained.py).
+The constrained loop is bo/cbo.py, IMGPO bo/imgpo.py, and a run's
+checkpoint and resume bo/checkpoint.py.
 """
 
 from __future__ import annotations

@@ -18,6 +18,16 @@ import torch
 from limbo_tpu_torch.utils.device import resolve_device
 
 
+def split(generator: torch.Generator) -> torch.Generator:
+    """A new generator on ``generator``'s device, seeded from one 62-bit
+    draw of it: where the reference splits a key, so that what the child
+    draws does not move the parent's stream.  The seed is read back to
+    the host (one wait on the card)."""
+    dev = generator.device
+    seed = torch.randint(0, 2 ** 62, (1,), generator=generator, device=dev)
+    return torch.Generator(device=dev).manual_seed(int(seed))
+
+
 def random_vector(generator: torch.Generator, dim: int, bounded: bool = True,
                   dtype=torch.float32) -> torch.Tensor:
     """One random vector; U[0,1]^dim when bounded, N(0, 10^2) otherwise

@@ -36,10 +36,16 @@ traced iteration followed by the loop's closing refit; ``f`` traces one
 ``propose_batch`` (q = 4, 16 restarts, Rprop(30), QEI(128)) on the
 optimize_batch state after 4096 init points and one round.
 
+With ``--cbo`` it profiles one iteration of chip_smoke.py's cbo path (a)
+instead (CBOptimizer in f32 on -Hartmann6 with its constraint, 4096 init
+points, capacity 4160: both GPs refitted, then ECI maximized by 64 x
+Rprop(20) from a 1024-point sweep), after the init design and one warm-up
+iteration.
+
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 scripts/torch_iter_profile.py [--iters 10] [--trace-iters 3]
-        [--trace out/trace.json] [--graph | --hp | --mo RUN] [--lite]
+        [--trace out/trace.json] [--graph | --hp | --mo RUN | --cbo] [--lite]
 """
 
 from __future__ import annotations
@@ -105,6 +111,23 @@ def mo_step(which: str, dev, gen):
         loop.stop = (MaxIterations(loop.iteration + 1),)
         loop.optimize(f, dim, generator=gen, reset=False)
     return step, f"Ehvi iterations of mo path ({which})"
+
+
+def cbo_step(dev, gen):
+    """One iteration of chip_smoke.py's cbo path (a), warmed up."""
+    import chip_smoke as cs
+    from limbo_tpu_torch.bo import MaxIterations, RandomSampling
+    from limbo_tpu_torch.bo.cbo import CBOptimizer
+
+    bo = CBOptimizer(nb_constraints=1, init=RandomSampling(cs.CBO_INIT),
+                     stop=(MaxIterations(1),), dtype=torch.float32,
+                     device=dev)
+    bo.optimize(cs.cbo_objective, cs.BO_DIM, generator=gen)
+
+    def step():
+        bo.stop = (MaxIterations(bo.iteration + 1),)
+        bo.optimize(cs.cbo_objective, cs.BO_DIM, generator=gen, reset=False)
+    return step, f"CBOptimizer iterations of cbo path (a) at n = {len(bo.X)}"
 
 
 def trace(step, reps: int, what: str, out) -> None:
@@ -190,6 +213,8 @@ def main() -> int:
                     help="the lite path's iteration at n = 32,768")
     ap.add_argument("--mo", choices=("a", "d", "e", "f", "g"),
                     help="one iteration of a run of chip_smoke's mo path")
+    ap.add_argument("--cbo", action="store_true",
+                    help="one iteration of chip_smoke's cbo path (a)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_iter_profile: CUDA is not available", file=sys.stderr)
@@ -203,8 +228,9 @@ def main() -> int:
     _cuda.build_all()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    if args.mo:
-        step, what = mo_step(args.mo, dev, gen)
+    if args.mo or args.cbo:
+        step, what = (mo_step(args.mo, dev, gen) if args.mo
+                      else cbo_step(dev, gen))
         step()                                                # warm-up
         torch.cuda.synchronize()
         trace(step, args.trace_iters, what, args.trace)

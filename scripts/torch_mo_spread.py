@@ -26,15 +26,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke as cs  # noqa: E402
 
 
-def readings(gp, Xq) -> dict:
-    """check_posterior_exact's readings, in units of the f32 move."""
+def readings(gp, Xq, control_rel: float = cs.MO_CONTROL_REL) -> dict:
+    """check_posterior_exact's readings, in units of the f32 move, the
+    control's inputs moved by ``control_rel``."""
     from limbo_tpu_torch.models import gp as gp_mod
 
     with torch.no_grad():
         mu, var = gp_mod.query(gp, Xq)
     mu64, var64 = cs.posterior_f64(gp, Xq)
     mu_s, var_s = cs.posterior_f64(gp, Xq, rel=cs.F32_U, dist=True)
-    mu_c, var_c = cs.posterior_f64(gp, Xq, rel=cs.MO_CONTROL_REL)
+    mu_c, var_c = cs.posterior_f64(gp, Xq, rel=control_rel)
     sm = float((mu_s - mu64).abs().max())
     sv = float((var_s - var64).abs().max())
     return dict(
