@@ -52,7 +52,8 @@ Run from the repository root on a machine with one NVIDIA H100:
    40.  Each run prints its set-up seconds and iterations/s, and must give
    best_value == max(observed), samples in [0, 1]^6, a finite GP, a
    posterior that agrees with f64 (in (a) and (b) within limits set by the
-   posterior's own f32 sensitivity, which a control must miss), and the
+   posterior's own f32 sensitivity and, for the variance, the f32
+   formula's cancellation, which a control must miss), and the
    launches of its kernels: gram in every iteration of (a), and gram,
    gram_train, tri-inv, trimv and the mirror in (c).  Each kernel a run
    launched is then held against its plain version on the run's own state,
@@ -88,8 +89,12 @@ Run from the repository root on a machine with one NVIDIA H100:
    opt_cmaes, no kernel in opt_direct); each accuracy is printed beside the
    reference's median (not a check).  gram is held against its plain
    version on limbo_def's final GP, and ``sym_eig`` against its plain
-   version on a CMA-ES covariance of the card (timed against it and
-   against ``torch.linalg.eigh``).  (b) ``regression_suite.
+   version on a CMA-ES covariance of the card and on 64 covariances of
+   d = 32 in f32 and f64 (timed against it and against
+   ``torch.linalg.eigh``, beside the bound of 9 d^3 operations a matrix
+   and the design's latency floor: the launch floor plus the sweeps the
+   plain version takes times one sweep of the kernel, timed on the same
+   matrices; every matrix's sweeps under the cap).  (b) ``regression_suite.
    run_regression_suite`` on RobotArm d8 at n = 600 (capacity 768), both
    models, one replicate and one oracle replicate, precise: finite MSEs
    printed beside the reference's medians and the oracle's, gram_train
@@ -193,9 +198,11 @@ import numpy as np
 import torch
 
 # data-sheet peaks of one H100 SXM (NVIDIA): HBM bandwidth, the f32 rate
-# outside the tensor cores and the dense bf16 tensor-core rate
+# outside the tensor cores, the f64 rate on them (34e12 outside) and the
+# dense bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS = 67e12
+PEAK_F64_OPS = 67e12
 PEAK_BF16_OPS = 989e12
 
 N_POINTS, DIM, CAPACITY = 10_000, 8, 10_240
@@ -216,6 +223,15 @@ BO_C_INIT, BO_C_ITERS, BO_C_REFRESH = 4096, 40, 20
 # distances, between the sound runs' largest reading (3.02) and the
 # smallest of a control's whose inputs move by 2^-9 (443), PERF.md
 BO_SLACK = 2 ** 5
+# the f32 variance's own cancellation (posterior_readings' cancel_var, a
+# model of its rounding's spread, not a bound) enters the variance's limit
+# this many times, not BO_SLACK times: it is the rms of a random walk of n
+# roundings (at most sqrt(n / 3) 2^-24 k(x, x) for errors uniform in one
+# rounding), so 2 (sqrt(n) + 1) 2^-24 k(x, x) is ~3.5 times that rms, past
+# which the largest of 64 query points' normal errors goes with
+# probability ~3% (1 - (1 - 5.4e-4)^64), the rms bound itself being high
+# (the partial sums grow from 0 to |z|^2)
+CANCEL_SLACK = 2
 F32_U = 2.0 ** -24          # unit roundoff of f32
 PANEL_PIVOTS = (0, 31, 32, 40, 127)   # failed pivots the panel check tries
 # the graph path: the main path's iteration captured, against the eager
@@ -1276,15 +1292,21 @@ class _SetupClock:
         return False
 
 
-def check_posterior_exact(gp, Xq, control_rel: float = 2.0 ** -9):
-    """The uncached posterior at Xq against the f64 posterior of the stored
-    data (posterior_f64).  The limits follow the posterior's own
-    conditioning: BO_SLACK times how far the f64 posterior moves when every
-    input, and the terms of every squared distance, move by up to one f32
-    rounding (2^-24 relative), for mu and for the variance.  A control
-    asserts that both limits can fail: the posterior from inputs moved by up
-    to ``control_rel`` (one bf16 rounding, 2^-9, unless the caller's state
-    needs a larger move to leave the limits) must miss each of them."""
+def posterior_readings(gp, Xq, control_rel: float) -> dict:
+    """What check_posterior_exact holds: the uncached f32 posterior at Xq
+    (mu, var) and the f64 posterior of the stored data (mu64, var64); the
+    f64 posterior's move when every input and the terms of every squared
+    distance move by up to one f32 rounding (sens_mu, sens_var); the f32
+    variance's own cancellation (cancel_var); and the f64 posterior's move
+    when the inputs move by up to `control_rel` (control_mu, control_var).
+
+    cancel_var: the f32 variance is k(x, x) - |z|^2, z = L^-1 k(X, x), a
+    sum of n squares whose partial sums each round by up to 2^-24 of
+    themselves; |z|^2 <= k(x, x), and the n roundings add as a random walk,
+    so they move it by about sqrt(n) 2^-24 k(x, x) (k(x, x) = sf2 for the
+    stationary kernels), then the subtraction by 2^-24 k(x, x) once more.
+    The inputs' rounding (sens_var) does not see it: that is the exact
+    posterior's conditioning, this the f32 formula's evaluation."""
     from limbo_tpu_torch.models import gp as gp_mod
 
     with torch.no_grad():
@@ -1292,27 +1314,60 @@ def check_posterior_exact(gp, Xq, control_rel: float = 2.0 ** -9):
     mu64, var64 = posterior_f64(gp, Xq)
     mu_s, var_s = posterior_f64(gp, Xq, rel=F32_U, dist=True)
     mu_c, var_c = posterior_f64(gp, Xq, rel=control_rel)
-    sens = dict(mu=float((mu_s - mu64).abs().max()),
-                var=float((var_s - var64).abs().max()))
-    tol = {k: BO_SLACK * v for k, v in sens.items()}
-    log(f"posterior at {Xq.shape[0]} points (n = {gp.n}, N = "
-        f"{gp.capacity}, {type(gp.kernel).__name__}); its move under one "
-        f"f32 rounding (2^-24): mu {sens['mu']:.3e}, var {sens['var']:.3e}:")
-    errs = dict(mu=check_close("mu vs the f64 posterior", mu[:, 0],
-                               mu64[:, 0], tol["mu"],
-                               f"{BO_SLACK} x that ({tol['mu']:.3e})"),
-                var=check_close("var vs the f64 posterior", var, var64,
-                                tol["var"],
-                                f"{BO_SLACK} x that ({tol['var']:.3e})"))
-    errs.update(sens_mu=sens["mu"], sens_var=sens["var"],
+    kxx = float(torch.exp(2.0 * gp.kernel.log_sigma.double()))
+    return dict(mu=mu[:, 0], var=var, mu64=mu64[:, 0], var64=var64,
+                sens_mu=float((mu_s - mu64).abs().max()),
+                sens_var=float((var_s - var64).abs().max()),
+                cancel_var=(math.sqrt(gp.n) + 1.0) * F32_U * kxx,
                 control_mu=float((mu_c - mu64).abs().max()),
                 control_var=float((var_c - var64).abs().max()))
-    log(f"  in units of that move: mu {errs['mu'] / sens['mu']:.3g}, var "
-        f"{errs['var'] / sens['var']:.3g}; control (inputs moved by "
+
+
+def posterior_move(r: dict) -> dict:
+    """The allowed moves of check_posterior_exact from its readings: mu's
+    under one f32 rounding of the inputs; the variance's, that move plus
+    CANCEL_SLACK / BO_SLACK times the f32 cancellation, so that BO_SLACK
+    units of it are BO_SLACK sens_var + CANCEL_SLACK cancel_var."""
+    return dict(mu=r["sens_mu"], var=r["sens_var"]
+                + CANCEL_SLACK / BO_SLACK * r["cancel_var"])
+
+
+def check_posterior_exact(gp, Xq, control_rel: float = 2.0 ** -9):
+    """The uncached posterior at Xq against the f64 posterior of the stored
+    data (posterior_f64).  The limits follow the posterior's own
+    conditioning and the f32 formula's rounding (posterior_readings): for
+    mu, BO_SLACK times how far the f64 posterior moves when every input,
+    and the terms of every squared distance, move by up to one f32
+    rounding (2^-24 relative); for the variance, BO_SLACK times that move
+    plus CANCEL_SLACK times the f32 variance's own cancellation,
+    (sqrt(n) + 1) 2^-24 k(x, x) (posterior_move).  A control asserts that
+    both limits can fail: the posterior from inputs moved by up to
+    ``control_rel`` (one bf16 rounding, 2^-9, unless the caller's state
+    needs a larger move to leave the limits) must miss each of them."""
+    r = posterior_readings(gp, Xq, control_rel)
+    move = posterior_move(r)
+    tol = {k: BO_SLACK * v for k, v in move.items()}
+    log(f"posterior at {Xq.shape[0]} points (n = {gp.n}, N = "
+        f"{gp.capacity}, {type(gp.kernel).__name__}); its move under one "
+        f"f32 rounding (2^-24): mu {r['sens_mu']:.3e}, var "
+        f"{r['sens_var']:.3e}; the f32 cancellation {r['cancel_var']:.3e} "
+        f"(var's limit {BO_SLACK} x the move + {CANCEL_SLACK} x that):")
+    errs = dict(mu=check_close("mu vs the f64 posterior", r["mu"], r["mu64"],
+                               tol["mu"],
+                               f"{BO_SLACK} x that ({tol['mu']:.3e})"),
+                var=check_close("var vs the f64 posterior", r["var"],
+                                r["var64"], tol["var"],
+                                f"{BO_SLACK} x that + {CANCEL_SLACK} x the "
+                                f"cancellation ({tol['var']:.3e})"))
+    errs.update({k: r[k] for k in ("sens_mu", "sens_var", "cancel_var",
+                                   "control_mu", "control_var")})
+    log(f"  in units of the allowed move (posterior_move; the limit "
+        f"{BO_SLACK}): mu {errs['mu'] / move['mu']:.3g}, var "
+        f"{errs['var'] / move['var']:.3g}; control (inputs moved by "
         f"2^{math.log2(control_rel):.0f}): mu "
-        f"{errs['control_mu']:.3e} ({errs['control_mu'] / sens['mu']:.3g}),"
+        f"{errs['control_mu']:.3e} ({errs['control_mu'] / move['mu']:.3g}),"
         f" var {errs['control_var']:.3e} "
-        f"({errs['control_var'] / sens['var']:.3g})")
+        f"({errs['control_var'] / move['var']:.3g})")
     if not (errs["control_mu"] > tol["mu"]
             and errs["control_var"] > tol["var"]):
         raise AssertionError(f"control: a posterior from inputs moved by "
@@ -1786,53 +1841,141 @@ def jit_path(dev, gen):
     return out, counts
 
 
-def sym_eig_entry(C) -> dict:
+def sym_eig_raw(C, cap: int):
+    """A launch of the eigensolver's library on C (B, d, d) with at most
+    `cap` sweeps, outside the wrapper (so not counted as a launch of a
+    path): returns the function that launches it and the (B,) int32 tensor
+    of the sweeps each matrix took, which each launch fills."""
+    from limbo_tpu_torch.ops import _cuda
+
+    B, d = C.shape[0], C.shape[-1]
+    w = torch.empty((B, d), dtype=C.dtype, device=C.device)
+    V = torch.empty_like(C)
+    taken = torch.zeros((B,), dtype=torch.int32, device=C.device)
+    lib = _cuda.library("sym_eig")
+
+    def run():
+        err = lib.sym_eig_launch(
+            C.data_ptr(), B, d, cap, int(C.dtype == torch.float64),
+            w.data_ptr(), V.data_ptr(), taken.data_ptr(),
+            torch.cuda.current_stream(C.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"sym_eig_launch: CUDA error {err}")
+
+    return run, taken
+
+
+def sym_eig_sweeps(C) -> torch.Tensor:
+    """The sweeps the eigensolver kernel took on each matrix of C (B, d, d)
+    under its cap ``MAX_SWEEPS``, on the host."""
+    from limbo_tpu_torch.ops.sym_eig import MAX_SWEEPS
+
+    run, taken = sym_eig_raw(C, MAX_SWEEPS)
+    run()
+    return taken.cpu()
+
+
+def sym_eig_sweep_ms(C, reps: int = 200) -> float:
+    """One sweep of the eigensolver's design on C (B, d, d), on the card:
+    the difference of launches capped at one sweep and at none (CUDA-graph
+    replays of `reps` calls, in turns one, none, none, one), every matrix
+    taking that one sweep (read from the capped launch).  A sweep's
+    instructions do not depend on the values, so where a matrix of C is
+    already diagonal to the rule, its off-diagonal entries are first set
+    to max|C| / d."""
+    one, taken = sym_eig_raw(C, 1)
+    one()
+    if int(taken.min()) != 1:
+        eye = torch.eye(C.shape[-1], dtype=torch.bool, device=C.device)
+        C = torch.where(eye, C, float(C.abs().max()) / C.shape[-1])
+        one, taken = sym_eig_raw(C, 1)
+        one()
+        if int(taken.min()) != 1:
+            raise AssertionError("sym_eig_sweep_ms: a matrix needs no sweep")
+    none, _ = sym_eig_raw(C, 0)
+    t = [cuda_ms(f, reps) for f in (one, none, none, one)]
+    return (t[0] + t[3] - t[1] - t[2]) / 2
+
+
+def sym_eig_entry(C, what: str = "a CMA-ES covariance") -> dict:
     """The eigensolver kernel against its plain version (the same Jacobi
-    rotations in PyTorch operations) on a CMA-ES covariance of the path:
-    eigenvalues within 1e-5 max|w|, the reconstruction V diag(w) V^T
-    within 1e-5 max|C|, and each eigenvector whose eigenvalue is at least
+    rotations in PyTorch operations) on C (B, d, d): in f32, eigenvalues
+    within 1e-5 max|w|, the reconstruction V diag(w) V^T within
+    1e-5 max|C|, and each eigenvector whose eigenvalue is at least
     1e-2 max|w| from its neighbours within 2e-3 (an f32 rounding of C moves
-    it by ~1e-7 / 1e-2); timed against it and against torch.linalg.eigh
-    (which waits on the host, so CUDA events, not a graph)."""
-    from limbo_tpu_torch.ops.sym_eig import SWEEPS, sym_eig, sym_eig_plain
+    it by ~1e-7 / 1e-2); in f64 each 1e-7 of that (the card tests' 1e-12
+    against their 1e-5).  Every matrix's sweeps under the cap
+    ``MAX_SWEEPS``.  Timed (CUDA-graph replay) against the plain version
+    and torch.linalg.eigh (both wait on the host, so CUDA events, not a
+    graph).  The bound, from B, d and the type alone: C read once, w and V
+    written once, and the 9 d^3 operations a matrix of a symmetric
+    eigendecomposition with vectors (Golub and Van Loan's count for the
+    symmetric QR algorithm), over the type's peak.  Beside it the design's
+    own latency floor: the launch floor plus the sweeps the plain version
+    takes times the rounds a sweep times one round of this design (a sweep
+    timed on C, sym_eig_sweep_ms, over its rounds), each factor printed."""
+    from limbo_tpu_torch.ops.sym_eig import (MAX_SWEEPS, jacobi, padded_size,
+                                             sym_eig, sym_eig_plain)
 
     B, d = C.shape[0], C.shape[-1]
     w, V = sym_eig(C)
     wp, Vp = sym_eig_plain(C)
     scale = float(wp.abs().max())
-    log(f"sym_eig on a CMA-ES covariance ({B} x {d} x {d}, f32), "
-        f"eigenvalues {[round(float(x), 6) for x in wp[0]]}:")
-    err = check_close("sym_eig eigenvalues", w, wp, 1e-5 * scale,
-                      "1e-5 max|w|")
+    kind = str(C.dtype)[6:]
+    rel = 1.0 if C.dtype == torch.float32 else 1e-7
+    log(f"sym_eig on {what} ({B} x {d} x {d}, {kind}), eigenvalues "
+        f"{[round(float(x), 6) for x in wp[0]]}{' ...' if B > 1 else ''}:")
+    err = check_close("sym_eig eigenvalues", w, wp, 1e-5 * rel * scale,
+                      f"{1e-5 * rel:.0e} max|w|")
     rec = V @ torch.diag_embed(w) @ V.transpose(-1, -2)
-    check_close("sym_eig V diag(w) V^T", rec, C, 1e-5 * float(C.abs().max()),
-                "1e-5 max|C|")
+    check_close("sym_eig V diag(w) V^T", rec, C,
+                1e-5 * rel * float(C.abs().max()), f"{1e-5 * rel:.0e} max|C|")
     gap = torch.diff(wp, dim=-1)
     edge = torch.full_like(gap[..., :1], math.inf)
     sep = torch.minimum(torch.cat([edge, gap], -1), torch.cat([gap, edge], -1))
     cols = sep >= 1e-2 * scale                                # (B, d)
     dv = torch.where(cols[:, None, :], (V - Vp).abs(), 0.0)
-    if not bool((dv <= 2e-3).all()):
+    vtol = 2e-3 * rel
+    if not bool((dv <= vtol).all()):
         raise AssertionError(f"sym_eig eigenvectors: max |err| "
-                             f"{float(dv.max()):.3e} over 2e-3")
+                             f"{float(dv.max()):.3e} over {vtol:.0e}")
     err = max(err, float(dv.max()))
     log(f"  sym_eig eigenvectors ({int(cols.sum())} of {B * d} separated): "
-        f"max |err| {float(dv.max()):.3e}, tolerance 2e-3: ok")
+        f"max |err| {float(dv.max()):.3e}, tolerance {vtol:.0e}: ok")
+    each = sym_eig_sweeps(C)
+    plain_sweeps = int(jacobi(C)[2].max())
+    if int(each.max()) >= MAX_SWEEPS:
+        raise AssertionError(f"sym_eig: a matrix ran to the cap of "
+                             f"{MAX_SWEEPS} sweeps unconverged")
+    log(f"  sym_eig sweeps: kernel {int(each.min())} to {int(each.max())} a "
+        f"matrix, plain version up to {plain_sweeps}, cap {MAX_SWEEPS}: ok")
     ms = cuda_ms(lambda: sym_eig(C))
-    plain = cuda_ms(lambda: sym_eig_plain(C), reps=2)
+    plain = event_ms(lambda: sym_eig_plain(C), reps=2)
     lib = event_ms(lambda: torch.linalg.eigh(C), reps=20)
-    # the work of the fixed sweeps: per rotation ~24 operations for
-    # (t, c, s) and the diagonal, 6 for each of the d - 2 other rows and
-    # 6 for each of the d eigenvector rows
-    ops = B * SWEEPS * d * (d - 1) / 2 * (24 + 6 * (d - 2) + 6 * d)
-    bnd = bound_ms(C.numel() * 4 + (w.numel() + V.numel()) * 4, ops)
+    size = C.element_size()
+    bnd = bound_ms((C.numel() + w.numel() + V.numel()) * size, 9 * B * d ** 3,
+                   PEAK_F32_OPS if C.dtype == torch.float32 else
+                   PEAK_F64_OPS)
+    cell = torch.empty((1,), device=C.device)
+    floor = cuda_ms(lambda: cell.fill_(1.0))
+    rounds = padded_size(d) - 1
+    round_ms = sym_eig_sweep_ms(C) / rounds
+    latency = floor + plain_sweeps * rounds * round_ms
     log(f"  sym_eig: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"torch.linalg.eigh {lib:.4f} ms (with its host check), bound "
-        f"{bnd[0]:.2e} ms ({bnd[1]}; latency-bound)")
+        f"torch.linalg.eigh {lib:.4f} ms (with its host check); bound "
+        f"{bnd[0]:.2e} ms ({bnd[1]}; 9 d^3 operations a matrix); the "
+        f"design's latency floor {latency:.4f} ms = launch floor "
+        f"{floor:.4f} ms + {plain_sweeps} sweeps (the plain version's) x "
+        f"{rounds} rounds x one round {round_ms * 1e3:.4f} us (a sweep "
+        f"timed on C over its rounds); the kernel at {latency / ms:.3f} of "
+        f"it")
     return dict(route="cuda", source="limbo_tpu_torch/csrc/sym_eig.cu",
                 replaces="limbo_tpu/opt/cmaes.py:93 (jnp.linalg.eigh, no "
                 "Pallas kernel)", max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib)
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib,
+                latency_floor_ms=latency, launch_floor_ms=floor,
+                round_ms=round_ms, rounds=rounds, sweeps=plain_sweeps,
+                kernel_sweeps=int(each.max()), shape=[B, d, d], dtype=kind)
 
 
 def _ref_median(path: str) -> float:
@@ -1934,6 +2077,17 @@ def suite_path(dev, gen):
                 for zt in z:
                     st = cm.generation(lambda X: -f(X), st, zt)
                 sym = sym_eig_entry(st.C)
+                # and at the kernel's largest size: 64 covariances of
+                # d = 32 (M M^T / 32 + I, M standard normal from a
+                # generator of its own), f32 and f64
+                g32 = torch.Generator(device=dev).manual_seed(32)
+                M = torch.randn((64, 32, 32), generator=g32, device=dev,
+                                dtype=torch.float64)
+                C32 = M @ M.transpose(-1, -2) / 32 + torch.eye(
+                    32, device=dev, dtype=torch.float64)
+                for dt in (torch.float32, torch.float64):
+                    sym[f"at_64x32x32_{str(dt)[6:]}"] = sym_eig_entry(
+                        C32.to(dt), "64 covariances of d = 32")
 
             fn = dataclasses.replace(ROBOT_ARM, dims=(8,))
             torch.cuda.synchronize()
@@ -3867,12 +4021,16 @@ def main() -> int:
                     or x.startswith(("at_", "fact", "promotion"))})
         row[f"at_N{LITE_CAPACITY}"] = at_lite[k]
         kernels.append(row)
+    latency = ("latency_floor_ms", "launch_floor_ms", "round_ms", "rounds",
+               "sweeps", "kernel_sweeps", "shape", "dtype")
     kernels.append(dict(
         name="sym_eig", **{x: sym[x] for x in ("route", "source",
                                                "replaces")},
         launches=sum(c["sym_eig"] for c in by_path.values()),
-        **{x: sym[x] for x in keys + ("bound_by",)},
-        launches_by_path={p: c["sym_eig"] for p, c in by_path.items()}))
+        **{x: sym[x] for x in keys + ("bound_by",) + latency},
+        launches_by_path={p: c["sym_eig"] for p, c in by_path.items()},
+        at_1x2x2=cbo["c"]["sym_eig"],
+        **{k: v for k, v in sym.items() if k.startswith("at_")}))
     print(json.dumps({"main_path": {
         "iters_per_s": res["iters_per_s"], "fit_s": res["fit_s"],
         "build_s": res["build_s"], "posterior_err": res["errs"],

@@ -3,12 +3,12 @@ each seed, runs (a) (CBOptimizer in f32 on -Hartmann6 with its
 constraint, 4096 init points, 10 iterations) from a generator of that
 seed, refits both GPs on the run's samples, and reads each one's f32
 posterior at 64 points against the f64 posterior of its stored data, in
-units of its move under one f32 rounding of the inputs and distances, as
-``check_posterior_exact`` does, beside the control (inputs moved by
-``CBO_CONTROL_REL``, 2^-8 for the objective GP, 2^-7 for the constraint
-GP) in the same units; for the constraint GP also the control of a 2^-8
-move (``MO_CONTROL_REL``, the objective GP's), which the 2^-7 replaced.  The limit those checks hold is
-``BO_SLACK`` (32) units.
+units of its move under one f32 rounding of the inputs and distances (the
+variance's allowed move also holding its own f32 cancellation; the
+variance also in the rule before it), as ``check_posterior_exact`` does,
+beside the control (inputs moved by ``CBO_CONTROL_REL``, 2^-8 for the
+objective GP, 2^-7 for the constraint GP) in the same units.  The limit
+those checks hold is ``BO_SLACK`` (32) units.
 
     python3 scripts/torch_cbo_spread.py [--seeds 0 1 2 ...]
 
@@ -26,7 +26,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke as cs  # noqa: E402
-from torch_mo_spread import readings  # noqa: E402
+from torch_mo_spread import readings, summary  # noqa: E402
 
 
 def main() -> int:
@@ -54,22 +54,12 @@ def main() -> int:
         row = dict(seed=seed)
         for name, g in (("objective", model), ("constraint", cmodel)):
             row[name] = readings(g, Xq, cs.CBO_CONTROL_REL[name])
-        low = readings(cmodel, Xq, cs.MO_CONTROL_REL)
-        row["constraint_at_2^-8"] = {k: low[k] for k in ("control_mu",
-                                                         "control_var")}
         del bo, model, cmodel
         torch.cuda.empty_cache()
         print(json.dumps(row), flush=True)
         rows.append(row)
     runs = ("objective", "constraint")
-    print(json.dumps({
-        "max_reading": {k: max(max(r[k]["mu"], r[k]["var"]) for r in rows)
-                        for k in runs},
-        "min_control_constraint_at_2^-8": min(
-            min(r["constraint_at_2^-8"].values()) for r in rows),
-        "min_control": {k: min(min(r[k]["control_mu"], r[k]["control_var"])
-                               for r in rows) for k in runs},
-        "limit": cs.BO_SLACK, "seeds": args.seeds}))
+    print(json.dumps(summary(rows, runs) | {"seeds": args.seeds}))
     print(cs.card_line())
     return 0
 

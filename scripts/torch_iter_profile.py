@@ -42,10 +42,19 @@ points, capacity 4160: both GPs refitted, then ECI maximized by 64 x
 Rprop(20) from a 1024-point sweep), after the init design and one warm-up
 iteration.
 
+With ``--suite VARIANT`` it profiles one captured iteration of that BO
+suite variant (``benchmarks/bo_suite.default_variants()``, e.g.
+``opt_cmaes``) on Hartmann6 (d = 6) at the suite's protocol (f32, 10 init
+points, the step of ``optimize_jit``): replay times as with ``--graph``,
+then a trace with the eigensolver's (``sym_eig_kernel``) share of the
+device time, then one whole run of the variant (``bo_suite.run_one``, 190
+iterations) and its time.
+
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 scripts/torch_iter_profile.py [--iters 10] [--trace-iters 3]
-        [--trace out/trace.json] [--graph | --hp | --mo RUN | --cbo] [--lite]
+        [--trace out/trace.json]
+        [--graph | --hp | --mo RUN | --cbo | --suite VARIANT] [--lite]
 """
 
 from __future__ import annotations
@@ -130,9 +139,32 @@ def cbo_step(dev, gen):
     return step, f"CBOptimizer iterations of cbo path (a) at n = {len(bo.X)}"
 
 
-def trace(step, reps: int, what: str, out) -> None:
+def suite_step(name: str, dev, gen):
+    """The captured step of BO suite variant `name` on Hartmann6 as
+    ``optimize_jit`` builds it (the init design appended eagerly, no
+    history rows); returns (step, the variant)."""
+    from limbo_tpu_torch.benchmarks import bo_suite
+    from limbo_tpu_torch.benchmarks.functions import HARTMANN6
+    from limbo_tpu_torch.bo.graph import BOStep
+    from limbo_tpu_torch.models.dispatch import add_sample_any
+
+    variant = {v.name: v for v in bo_suite.default_variants()}[name]
+    bo = bo_suite.make_optimizer(variant, HARTMANN6, device=dev)
+    f = HARTMANN6.as_max_objective(dev, torch.float32)
+    d = HARTMANN6.dim_in
+    gp = bo._make_gp(d, 1, bo._capacity())
+    for x in bo.init(gen, d, dtype=bo.dtype):
+        gp = add_sample_any(gp, x, f(x).to(bo.dtype).reshape(1))
+    step = BOStep(gp, None, lambda model, it: bo._maximize(model, it, gen).x,
+                  f, gen, fast_update=bo.cache_fast_update)
+    return step, variant
+
+
+def trace(step, reps: int, what: str, out):
     """Run `step` `reps` times under torch.profiler; print the wall time,
-    the device-busy total, the idle share and the device time by kernel."""
+    the device-busy total, the idle share and the device time by kernel;
+    returns (wall ms, busy ms, [(kernel, device us, launches)]), a step's
+    each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,7 +190,8 @@ def trace(step, reps: int, what: str, out) -> None:
     # the 20 largest, and every kernel of the port's own csrc/ beside them
     own = ("gram_kernel", "gram_train_kernel", "lower_mv_kernel",
            "lower_tmv_kernel", "tri_inv_panel_kernel",
-           "panel_factor", "mirror_mm", "round_a_kernel", "chunk_sum")
+           "panel_factor", "mirror_mm", "round_a_kernel", "chunk_sum",
+           "sym_eig_kernel")
     for i, (key, us, count) in enumerate(rows):
         if i < 20 or any(k in key for k in own):
             print(f"  {us / 1e3 / reps:9.4f}  {count / reps:7.1f}  "
@@ -166,6 +199,34 @@ def trace(step, reps: int, what: str, out) -> None:
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out))
+    return (1e3 * wall / reps, 1e3 * busy / reps,
+            [(k, us / reps, c / reps) for k, us, c in rows])
+
+
+def profile_suite(name: str, dev, gen, args, card) -> int:
+    """One captured iteration of suite variant `name`: replay times, a
+    trace with the eigensolver's share, then one whole run."""
+    from limbo_tpu_torch.benchmarks import bo_suite
+    from limbo_tpu_torch.benchmarks.functions import HARTMANN6
+
+    step, variant = suite_step(name, dev, gen)
+    replay_times(step, args.iters)
+    wall, busy, rows = trace(step.step, args.trace_iters,
+                             f"captured {name} iterations", args.trace)
+    eig_us = sum(us for k, us, _ in rows if "sym_eig_kernel" in k)
+    eig_n = sum(n for k, _, n in rows if "sym_eig_kernel" in k)
+    print(f"{name} iteration (traced): wall {wall:.3f} ms, busy "
+          f"{busy:.3f} ms, idle share {1.0 - busy / wall:.3f}; the "
+          f"eigensolver {eig_us / 1e3:.4f} ms in {eig_n:.0f} launches, "
+          f"{eig_us / 1e3 / busy:.3f} of busy", flush=True)
+    iters = 190                                  # the suite's protocol
+    acc, ms, capture = bo_suite.run_one(variant, HARTMANN6, n_iters=iters,
+                                        device=dev)
+    print(f"one {name} run on Hartmann6 ({iters} iterations): {ms:.1f} ms, "
+          f"of it warm-up and capture {capture:.1f} ms; accuracy "
+          f"{acc:.6f}", flush=True)
+    print(f"card: {card}")
+    return 0
 
 
 def profile_graph(path, gp, cache, args, card) -> int:
@@ -174,28 +235,34 @@ def profile_graph(path, gp, cache, args, card) -> int:
 
     step = BOStep(gp, cache, lambda model, it: path.propose(model, path.gen),
                   path.objective, path.gen, fast_update="deferred")
+    replay_times(step, args.iters)
+    trace(step.step, args.trace_iters, "captured iterations", args.trace)
+    print(f"card: {card}")
+    return 0
+
+
+def replay_times(step, iters: int) -> None:
+    """The warm-up iteration and capture of `step`, then `iters` replays:
+    the host's time to issue one and the time to its synchronize."""
     t0 = time.perf_counter()
     step.step()                                   # warm-up and capture
     torch.cuda.synchronize()
     print(f"warm-up iteration and capture: "
           f"{1e3 * (time.perf_counter() - t0):.3f} ms", flush=True)
     t_issue, t_all = [], []
-    for _ in range(args.iters):
+    for _ in range(iters):
         t0 = time.perf_counter()
         step.step()
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t_issue.append(t1 - t0)
         t_all.append(time.perf_counter() - t0)
-    print(f"per replay over {args.iters}: issued in "
+    print(f"per replay over {iters}: issued in "
           f"{1e3 * sum(t_issue) / len(t_issue):.3f} ms (min "
           f"{1e3 * min(t_issue):.3f}), to its synchronize "
           f"{1e3 * sum(t_all) / len(t_all):.3f} ms (min "
           f"{1e3 * min(t_all):.3f}), host clock; launches per replay "
           f"{step.launches()}", flush=True)
-    trace(step.step, args.trace_iters, "captured iterations", args.trace)
-    print(f"card: {card}")
-    return 0
 
 
 def main() -> int:
@@ -215,6 +282,9 @@ def main() -> int:
                     help="one iteration of a run of chip_smoke's mo path")
     ap.add_argument("--cbo", action="store_true",
                     help="one iteration of chip_smoke's cbo path (a)")
+    ap.add_argument("--suite", metavar="VARIANT",
+                    help="one captured iteration of a BO suite variant on "
+                    "Hartmann6, and one whole run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_iter_profile: CUDA is not available", file=sys.stderr)
@@ -228,6 +298,8 @@ def main() -> int:
     _cuda.build_all()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.suite:
+        return profile_suite(args.suite, dev, gen, args, card)
     if args.mo or args.cbo:
         step, what = (mo_step(args.mo, dev, gen) if args.mo
                       else cbo_step(dev, gen))

@@ -4,9 +4,12 @@ each seed, runs (f) (optimize_batch q = 4 on -Hartmann6, 4096 init points,
 iterations) from a generator of that seed, then reads each final GP's
 (each output's in (g)) f32 posterior at 64 points against the f64
 posterior of its stored data, in units of its move under one f32
-rounding of the inputs and distances, as ``check_posterior_exact`` does,
-beside the control (inputs moved by ``MO_CONTROL_REL``) in the same
-units.  The limit those checks hold is ``BO_SLACK`` (32) units.
+rounding of the inputs and distances (the variance's allowed move also
+holding its own f32 cancellation, ``chip_smoke.posterior_move``), as
+``check_posterior_exact`` does, beside the control (inputs moved by
+``MO_CONTROL_REL``) in the same units, and each variance reading also in
+the units of the rule before the cancellation term.  The
+limit those checks hold is ``BO_SLACK`` (32) units.
 
     python3 scripts/torch_mo_spread.py [--seeds 0 1 2 ...]
 
@@ -27,27 +30,44 @@ import chip_smoke as cs  # noqa: E402
 
 
 def readings(gp, Xq, control_rel: float = cs.MO_CONTROL_REL) -> dict:
-    """check_posterior_exact's readings, in units of the f32 move, the
-    control's inputs moved by ``control_rel``."""
-    from limbo_tpu_torch.models import gp as gp_mod
+    """check_posterior_exact's readings (chip_smoke.posterior_readings) in
+    units of its allowed move (chip_smoke.posterior_move), the control's
+    inputs moved by ``control_rel``; the variance's also in units of the
+    inputs' f32 move alone (``*_before``, the rule before the cancellation
+    term)."""
+    r = cs.posterior_readings(gp, Xq, control_rel)
+    move = cs.posterior_move(r)
+    sm, mv, sv = move["mu"], move["var"], r["sens_var"]
+    em = float((r["mu"].double() - r["mu64"]).abs().max())
+    ev = float((r["var"].double() - r["var64"]).abs().max())
+    return dict(mu=em / sm, var=ev / mv, control_mu=r["control_mu"] / sm,
+                control_var=r["control_var"] / mv, var_before=ev / sv,
+                control_var_before=r["control_var"] / sv,
+                cancel_var=r["cancel_var"], sens_var=sv)
 
-    with torch.no_grad():
-        mu, var = gp_mod.query(gp, Xq)
-    mu64, var64 = cs.posterior_f64(gp, Xq)
-    mu_s, var_s = cs.posterior_f64(gp, Xq, rel=cs.F32_U, dist=True)
-    mu_c, var_c = cs.posterior_f64(gp, Xq, rel=control_rel)
-    sm = float((mu_s - mu64).abs().max())
-    sv = float((var_s - var64).abs().max())
-    return dict(
-        mu=float((mu[:, 0].double() - mu64[:, 0]).abs().max()) / sm,
-        var=float((var.double() - var64).abs().max()) / sv,
-        control_mu=float((mu_c - mu64).abs().max()) / sm,
-        control_var=float((var_c - var64).abs().max()) / sv)
+
+def summary(rows, runs) -> dict:
+    """The largest reading and the smallest control of each run over the
+    seeds, under the rule and under the rule before the cancellation
+    term, beside the limit (BO_SLACK units)."""
+    def over(k, keys, f):
+        return f(f(r[k][x] for x in keys) for r in rows)
+
+    return {
+        "max_reading": {k: over(k, ("mu", "var"), max) for k in runs},
+        "min_control": {k: over(k, ("control_mu", "control_var"), min)
+                        for k in runs},
+        "max_reading_before": {k: over(k, ("mu", "var_before"), max)
+                               for k in runs},
+        "min_control_before": {k: over(k, ("control_mu",
+                                           "control_var_before"), min)
+                               for k in runs},
+        "limit": cs.BO_SLACK}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seeds", type=int, nargs="+", default=list(range(6)))
+    ap.add_argument("--seeds", type=int, nargs="+", default=list(range(8)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_mo_spread.py: no CUDA device", file=sys.stderr)
@@ -84,12 +104,7 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         rows.append(row)
     runs = [k for k in rows[0] if k != "seed"]
-    print(json.dumps({
-        "max_reading": {k: max(max(r[k]["mu"], r[k]["var"]) for r in rows)
-                        for k in runs},
-        "min_control": {k: min(min(r[k]["control_mu"], r[k]["control_var"])
-                               for r in rows) for k in runs},
-        "limit": cs.BO_SLACK, "seeds": args.seeds}))
+    print(json.dumps(summary(rows, runs) | {"seeds": args.seeds}))
     print(cs.card_line())
     return 0
 

@@ -575,6 +575,79 @@ def test_sym_eig_refuses_what_the_kernel_does_not_take(dev):
         sym_eig(torch.eye(3, device=dev, dtype=torch.float16))
 
 
+def _hard_spectra(kind: str, rng) -> np.ndarray:
+    """a I plus a rank-4 update at d = 6 (a repeated eigenvalue, as
+    CMA-ES's covariance at mu = 4), an ill-conditioned covariance at d = 8
+    (eigenvalues from 1e-12 to 1 in a random basis), or 64 random
+    symmetric matrices at d = 32."""
+    if kind == "repeated":
+        Y = rng.standard_normal((5, 4, 6))
+        return 0.7 * np.eye(6) + 0.1 * np.swapaxes(Y, 1, 2) @ Y / 4
+    if kind == "ill":
+        Q = np.linalg.qr(rng.standard_normal((5, 8, 8)))[0]
+        A = (Q * np.logspace(-12, 0, 8)[None, None, :]) @ np.swapaxes(Q, 1, 2)
+        return (A + np.swapaxes(A, 1, 2)) / 2
+    M = rng.standard_normal((64, 32, 32))
+    return M + np.swapaxes(M, 1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", ["repeated", "ill", "random_d32_b64"])
+def test_sym_eig_kernel_hard_spectra(dev, dtype, kind):
+    """The eigensolver kernel on a repeated eigenvalue, an ill-conditioned
+    covariance and d = 32 at batch 64: eigenvalues against numpy's LAPACK
+    eigh and the plain version, V diag(w) V^T, orthogonality and the sign
+    rule, within 1e-5 (f32) or 1e-12 (f64) of max|A|, times d / 8 past
+    d = 8 (test_sym_eig_kernel_ragged's tolerance)."""
+    from limbo_tpu_torch.ops.sym_eig import sym_eig, sym_eig_plain
+
+    A = _hard_spectra(kind, np.random.default_rng(5))
+    b, d = A.shape[0], A.shape[-1]
+    At = torch.tensor(A, dtype=dtype, device=dev)
+    before = _cuda.LAUNCHES["sym_eig"]
+    w, V = sym_eig(At)
+    assert _cuda.LAUNCHES["sym_eig"] == before + 1
+    wp, _ = sym_eig_plain(At)
+    tol = (1e-5 if dtype == torch.float32 else 1e-12) * np.abs(A).max() \
+        * max(1, d // 8)
+    w64, V64 = w.double().cpu().numpy(), V.double().cpu().numpy()
+    np.testing.assert_allclose(w64, wp.double().cpu().numpy(), atol=tol,
+                               rtol=0)
+    np.testing.assert_allclose(w64, np.linalg.eigvalsh(A), atol=tol, rtol=0)
+    np.testing.assert_allclose((V64 * w64[:, None, :]) @ np.swapaxes(V64, 1, 2),
+                               A, atol=tol, rtol=0)
+    np.testing.assert_allclose(np.swapaxes(V64, 1, 2) @ V64,
+                               np.broadcast_to(np.eye(d), (b, d, d)),
+                               atol=tol / np.abs(A).max(), rtol=0)
+    im = np.argmax(np.abs(V64), axis=1)
+    assert (np.take_along_axis(V64, im[:, None, :], 1) > 0).all()
+
+
+def test_sym_eig_captured_replay_equals_eager(dev):
+    """sym_eig captured in a CUDA graph (as inside the captured BO
+    iteration) gives the eager launch's bits on replay, also after its
+    input is rewritten in place."""
+    from limbo_tpu_torch.ops.sym_eig import sym_eig
+
+    rng = np.random.default_rng(7)
+    A1, A2 = (torch.tensor(_hard_spectra("repeated", rng), device=dev,
+                           dtype=torch.float32) for _ in range(2))
+    static = A1.clone()
+    sym_eig(static)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        w, V = sym_eig(static)
+    for A in (A1, A2):
+        static.copy_(A)
+        g.replay()
+        torch.cuda.synchronize()
+        w0, V0 = sym_eig(A)
+        assert torch.equal(w, w0) and torch.equal(V, V0)
+    assert not torch.equal(w0, sym_eig(A1)[0])
+
+
 def _small_gp(dev):
     from limbo_tpu_torch.kernels import MaternFiveHalves
     from limbo_tpu_torch.means import DataMean
