@@ -177,7 +177,23 @@ Run from the repository root on a machine with one NVIDIA H100:
    ``create`` (4096 init points, 10 iterations) under build/, ``run-local``
    of two replicates at once on the card (exit codes 0, finite stats
    rows), ``params`` with an override, a bad override (exit code 2).
-16. Prints a JSON line of each path's numbers, a JSON line of per-kernel
+16. dist path (``dist_path``): the multi-GPU layer (limbo_tpu_torch/
+   parallel, bo/distributed.py) on an NCCL group of world size 1 from a
+   FileStore, every collective a real NCCL call on one rank.  (a)
+   DistributedBOptimizer at N = 32,768 (32,640 init points on the hp
+   path's data model, a bf16 K^-1 panel, block 128, defer_m = 32, 40
+   iterations, one flush): the fit's factor against the covariance it
+   factored and cholesky_ex, the posterior of the sharded factor and alpha
+   against f64 (check_posterior_exact), best_value == max(observed), the
+   audited psum payloads of the fit, the build, an append and the flush
+   against their closed forms, the launches; fit s, build s, iters/s and
+   resident GB printed.  (b) make_sharded_bo_iter on the main path's
+   workload, 40 iterations: the state the single-card deferred appends'
+   bit for bit, check_posterior, trimv twice an append.  (c) run_dryrun,
+   the sharded CG, the row-sharded mean, the restart fan-out and CMA-ES /
+   NSGA-II with a mesh against their unsplit runs, and a block the panel
+   kernel lacks, which must raise.
+17. Prints a JSON line of each path's numbers, a JSON line of per-kernel
    numbers, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -286,6 +302,13 @@ CBO_CONTROL_REL = {"objective": MO_CONTROL_REL, "constraint": 2.0 ** -7}
 IMGPO_EVALS = 1024
 PERSIST_ITERS, PERSIST_E_ITERS = 20, 15
 CLI_SAMPLES, CLI_ITERS, CLI_RUNS = 4096, 10, 2
+# slice 13, the dist path: (a) DistributedBOptimizer at the width one card
+# holds, capacity DIST_N = 256 x 128 (DIST_INIT init points + DIST_ITERS
+# iterations + 1, rounded up to the block), the hp path's data model, one
+# flush of DIST_DEFER_M; (b) make_sharded_bo_iter on the main path's
+# workload; (c) the sharded CG at DIST_CG_N points
+DIST_N, DIST_INIT, DIST_ITERS, DIST_DEFER_M = 32_768, 32_640, 40, 32
+DIST_CG_N, DIST_RATE_ITERS = 4096, 10
 # the launches of one 190-iteration run of each variant: the sweep's gram
 # (1024 x 256 = 512^2) once an iteration where the ascent maximizes (the
 # ascent's 64 x 256 and the hp-opt at capacity 256 stay under the kernels'
@@ -3958,6 +3981,590 @@ def persist_path(dev, gen):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the multi-GPU layer (limbo_tpu_torch/parallel,
+# bo/distributed.py) at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+def dist_words(N: int, B: int, p: int = 1) -> dict:
+    """The per-rank psum payloads, in words, of the sharded fit, the cache
+    build, an append and an append that flushes a bf16 panel (a rebuild),
+    at world size 1 (the closed forms of tests/test_comm_audit.py and
+    docs/BENCHMARKS.md's table, whose append row reads 4 N + B^2 where the
+    pinned test, and this run, count 2 N + B^2: one forward and one
+    backward solve of N words each)."""
+    nb = N // B
+    add = 2 * N + B * B
+    build = 2 * N * N + 2 * N * (p + 1)
+    return dict(fit=B * B * nb * (nb - 1) // 2 + nb * B * B + 2 * nb * B * p
+                + 1, build=build, add=add, flush=add + build)
+
+
+class _Audited:
+    """A method of an object replaced, for one run, by itself timed (to
+    the card's synchronize) and its collectives audited, with `after`
+    called on its result outside the clock and the launch counts."""
+
+    def __init__(self, obj, name: str, after=None):
+        self.obj, self.name, self.after = obj, name, after
+        self.fn = getattr(obj, name)
+        self.s = self.stats = self.peak = None
+        setattr(obj, name, self)
+
+    def __call__(self, *args):
+        from limbo_tpu_torch.parallel.comm_audit import collective_volume
+
+        got = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        self.stats = collective_volume(lambda: got.append(self.fn(*args)))
+        torch.cuda.synchronize()
+        self.s = time.perf_counter() - t0
+        self.peak = torch.cuda.max_memory_allocated()
+        if self.after is not None:
+            with uncounted():
+                self.after(got[0])
+        return got[0]
+
+
+def _psum_words(stats: dict) -> int:
+    if set(stats) - {"psum"}:
+        raise AssertionError(f"dist path: collectives other than psum: "
+                             f"{sorted(stats)}")
+    return stats.get("psum", {"bytes": 0})["bytes"] // 4
+
+
+def check_audit(what: str, stats: dict, want: int) -> int:
+    got = _psum_words(stats)
+    log(f"  comm_audit {what}: {got} psum words ({stats.get('psum', {})}), "
+        f"closed form {want}: {'ok' if got == want else 'MISMATCH'}")
+    if got != want:
+        raise AssertionError(f"dist path: {what} moved {got} psum words, "
+                             f"the closed form gives {want}")
+    return got
+
+
+def dist_factor_checks(sgp) -> dict:
+    """The sharded fit's factor (at world size 1 the rank holds every row)
+    against the covariance it factored, recomputed by the fit's own
+    routine (sharded_chol._local_gram, the same bits): check_blocked_factor
+    (the f32 backward error in f64, and the single-card cholesky_ex), and
+    the panel kernel against its plain version on the first diagonal
+    block."""
+    from limbo_tpu_torch.ops import chol
+    from limbo_tpu_torch.parallel import sharded_chol
+
+    N = sgp.capacity
+    G = sharded_chol._local_gram(sgp.kernel, sgp.x, sgp.mask, 0, N)
+    B = chol.PANEL_BLOCK
+    Lk, Vk = chol._panel_factor_pallas(G[:B, :B])
+    Lp, Vp = chol.panel_factor_plain(G[:B, :B])
+    out = dict(panel_L11=check_close(
+        "panel L11 (first block of the fit)", Lk, Lp,
+        1e-4 * float(Lp.abs().max()), "1e-4 max|plain|"), panel_L11invT=
+        check_close("panel L11^-T (first block of the fit)", Vk, Vp,
+                    1e-4 * float(Vp.abs().max()), "1e-4 max|plain|"))
+    torch.cuda.empty_cache()
+    out.update(check_blocked_factor(sgp.L, G))
+    del G
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_mirror_check(big, Xq) -> dict:
+    """The mirror kernel on the rank's bf16 K^-1 panel at the ascent's q:
+    against the f64 product of the same bf16 operands within the f32
+    rounding of one sum, sqrt(N) 2^-24 (|ks| @ |Kq|) (check_posterior's
+    rule); and the cached posterior through the panel against the exact
+    one, printed (at bf16 the variance's gap is the mirror's rounding)."""
+    from limbo_tpu_torch.ops import mirror
+
+    ks = big.kernel.gram(Xq, big.x) * big.mask[None, :]
+    t = mirror.mirror_mm(ks, big.Kq)
+    k64 = ks.to(torch.bfloat16).double()
+    K64 = big.Kq.double()
+    t64 = k64 @ K64
+    scale = k64.abs() @ K64.abs()
+    del K64
+    N = big.capacity
+    err = check_close("mirror on the rank's bf16 panel vs f64", t, t64,
+                      N ** 0.5 * F32_U * scale,
+                      "sqrt(N) 2^-24 (|ks| @ |Kq|)")
+    return dict(mirror_product=err)
+
+
+def nccl_latency(dev) -> dict:
+    """The first psum's seconds (it makes the NCCL communicator), then the
+    host time of a warm psum of a (128, 1) block (a solve step's) and of
+    an all_gather of a (64, 2048) block along dim 1 (the backward of an
+    ascent step), 200 calls each to a synchronize."""
+    from limbo_tpu_torch.parallel import mesh as pmesh
+
+    ax = pmesh.mesh_axis(pmesh.make_mesh(axis_name="rows"))
+    x = torch.zeros((128, 1), device=dev)
+    y = torch.zeros((64, 2048), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pmesh.psum(x, ax)
+    torch.cuda.synchronize()
+    out = dict(init_s=time.perf_counter() - t0)
+    for name, fn in (("psum_us", lambda: pmesh.psum(x, ax)),
+                     ("all_gather_us", lambda: pmesh.all_gather(y, ax, 1))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / 200 * 1e6
+    return out
+
+
+def step_loop_ops(dev, gen) -> dict:
+    """The unrolled step loops at N = DIST_CG_N, block 128 (32 steps): the
+    device operations (kernels, copies and fills) that torch.profiler
+    records for the sharded fit (factor + two solves), one distributed
+    two-triangular solve of one column, and one append, the collectives
+    each issues (comm_audit), and the host time of each call; per step
+    they do not depend on N.  A profiler that fails or records no device
+    operation fails the path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from limbo_tpu_torch.parallel import mesh as pmesh
+    from limbo_tpu_torch.parallel.comm_audit import collective_volume
+    from limbo_tpu_torch.parallel.sharded_big import (_big_add,
+                                                      sharded_cache_from_fit)
+    from limbo_tpu_torch.parallel.sharded_chol import (_dist_cho_solve,
+                                                       sharded_fit)
+
+    mesh = pmesh.make_mesh(axis_name="rows")
+    path = MainPath(dev, gen, n=DIST_CG_N - 8, capacity=DIST_CG_N,
+                    ell=HP_ELL, noise=HP_NOISE, y_noise=HP_Y_NOISE)
+    X = torch.zeros((DIST_CG_N, DIM), device=dev)
+    Y = torch.zeros((DIST_CG_N, 1), device=dev)
+    X[:path.X.shape[0]], Y[:path.Y.shape[0]] = path.X, path.Y
+    n = path.X.shape[0]
+    sgp = sharded_fit(mesh, path.kernel, path.mean, X, Y, n=n, block=128)
+    big = sharded_cache_from_fit(mesh, sgp, defer_m=DIST_DEFER_M)
+    c = torch.rand((DIST_CG_N, 1), generator=gen, device=dev)
+    x = torch.rand((DIM,), generator=gen, device=dev)
+    calls = {
+        "fit": lambda: sharded_fit(mesh, path.kernel, path.mean, X, Y, n=n,
+                                   block=128),
+        "solve": lambda: _dist_cho_solve(sgp.L, sgp.L11invs, c, 0,
+                                         DIST_CG_N, DIST_CG_N, 128,
+                                         sgp.axis),
+        "append": lambda: _big_add(big, x, path.objective(x), big.axis)}
+    out = dict(steps=DIST_CG_N // 128)
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = collective_volume(fn)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+        if ops == 0:
+            raise RuntimeError(f"step loops: torch.profiler recorded no "
+                               f"device operation of the {name}")
+        out[name] = dict(device_ops=ops, collectives=sum(
+            e["count"] for e in stats.values()), host_ms=host_ms)
+    log(f"  the unrolled step loops at N = {DIST_CG_N} ({out['steps']} "
+        f"steps of 128): {out}")
+    return out
+
+
+def dist_path(dev, gen, seed: int):
+    """Slice 13, the multi-GPU layer on one card: an NCCL group of world
+    size 1 from a FileStore, every collective a real NCCL call on one rank,
+    closed at the end.
+
+    (a) DistributedBOptimizer at the width one card holds:
+    scripts/large_n_bench.py's data model (d = 8, SquaredExpARD l = 0.3,
+    noise 0.09, y = sin(3 sum x) + 0.3 noise), DIST_INIT init points, a
+    bf16 K^-1 panel, block 128 and defer_m = DIST_DEFER_M, capacity
+    N = DIST_N, then DIST_ITERS ask/tell iterations (one flush, a panel
+    rebuild).  Held: the fit's factor (dist_factor_checks), the posterior
+    of the sharded factor and alpha after the iterations against the f64
+    posterior of the stored data (check_posterior_exact), the mirror on
+    the panel, gram on the run's state, best_value == max(observed), the
+    audited psum payloads of the fit, the build, an append and the
+    flushing append against their closed forms (dist_words), and the
+    launches (panel_factor N / B times, gram and the mirror in every
+    acquisition step).  Printed: fit s, build s, iters/s, resident GB.
+    (b) make_sharded_bo_iter on bench.py's workload (MainPath: n = 10,000,
+    capacity 10,240, bf16 mirror, defer_m = 32), DIST_ITERS iterations
+    from the single-card fit and cache build (gram_train, tri-inv);
+    the state must equal, bit for bit, the single-card deferred appends
+    (main_path's) of the same points, the sharded cached mean the
+    single-card one; check_posterior and bo_kernel_checks on the state;
+    trimv twice an append.  (c) The rest at small sizes: run_dryrun,
+    sharded_cg_fit_alpha against the exact solve, row_sharded_posterior_
+    mean against the single-card mean, sharded_restart_opt and Cmaes /
+    Nsga2 with a mesh against their unsplit runs (the same bits), and a
+    sharded fit at a block the panel kernel lacks, which must raise."""
+    from limbo_tpu_torch.acqui import UCB
+    from limbo_tpu_torch.bo import DistributedBOptimizer, MaxIterations
+    from limbo_tpu_torch.bo.init_designs import RandomSampling
+    from limbo_tpu_torch.kernels import SquaredExpARD
+    from limbo_tpu_torch.means import DataMean
+    from limbo_tpu_torch.models import gp as gp_mod
+    from limbo_tpu_torch.ops import _cuda
+    from limbo_tpu_torch.parallel import mesh as pmesh
+    from limbo_tpu_torch.parallel.comm_audit import collective_volume
+    from limbo_tpu_torch.parallel.sharded_big import big_query
+
+    group = pmesh.start_group(device=dev)
+    try:
+        out, counts = {}, {}
+        out["nccl"] = nccl_latency(dev)
+        log(f"dist path: NCCL group of world size "
+            f"{torch.distributed.get_world_size()} on {group.device} "
+            f"(backend {torch.distributed.get_backend()}): the communicator "
+            f"made by the first psum in {out['nccl']['init_s']:.3f} s; a "
+            f"warm psum of a (128, 1) block {out['nccl']['psum_us']:.1f} us, "
+            f"an all_gather of (64, 2048) along dim 1 "
+            f"{out['nccl']['all_gather_us']:.1f} us (host clock, 200 calls "
+            f"to a synchronize)")
+        # ---- (a) ----
+        mesh = pmesh.make_mesh(axis_name="rows")
+        kernel = SquaredExpARD.create(dim=DIM, noise=HP_NOISE, device=dev)
+        kernel = kernel.replace(log_ell=torch.full((DIM,), math.log(HP_ELL),
+                                                   device=dev))
+        dbo = DistributedBOptimizer(
+            mesh, kernel=kernel, mean=DataMean.create(dim_out=1, device=dev),
+            acqui=UCB(alpha=0.5), init=RandomSampling(DIST_INIT),
+            stop=(MaxIterations(DIST_ITERS),), stats_enabled=False,
+            block=128, defer_m=DIST_DEFER_M, qdtype=torch.bfloat16)
+        rng = np.random.default_rng(seed)
+
+        def f(x):
+            return float(np.sin(3.0 * np.sum(x))
+                         + HP_Y_NOISE * rng.standard_normal())
+
+        errs = {}
+        fit = _Audited(dbo, "_fit", after=lambda sgp: errs.update(
+            factor=dist_factor_checks(sgp)))
+        build = _Audited(dbo, "_build")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()    # what earlier paths hold
+        _cuda.reset_launches()
+        state = dbo.init_state(DIM, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        observed = []
+        while state.pending_init:
+            x = state.pending_init[0]
+            observed.append(f(x))
+            dbo.tell(state, x, observed[-1])
+        big = state.gp
+        N = big.capacity
+        resident = torch.cuda.memory_allocated() - base
+        if N != DIST_N or big.n != DIST_INIT:
+            raise AssertionError(f"dist path (a): capacity {N}, n {big.n}")
+        words = dist_words(N, dbo.block)
+        log(f"dist path (a): DistributedBOptimizer, N = {N}, n = {big.n}, "
+            f"block {dbo.block}: fit {fit.s:.3f} s (peak "
+            f"{(fit.peak - base) / 1e9:.3f} GB), cache build {build.s:.3f} s "
+            f"(peak {(build.peak - base) / 1e9:.3f} GB), resident "
+            f"{resident / 1e9:.3f} GB (each above the {base / 1e9:.3f} GB "
+            f"that earlier paths hold)")
+        audit = dict(fit=check_audit("fit", fit.stats, words["fit"]),
+                     build=check_audit("build", build.stats, words["build"]))
+        ask_s, tell_s = [], []
+        for it in range(DIST_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = dbo.ask(state)              # ends in a copy to the host
+            t1 = time.perf_counter()
+            observed.append(f(x))
+            flush = state.gp.n - state.gp.base_n + 1 == dbo.defer_m
+            t2 = time.perf_counter()
+            if it == 1 or flush:
+                stats = collective_volume(dbo.tell, state, x, observed[-1])
+                kind = "flush" if flush else "add"
+                audit[kind] = check_audit(
+                    f"{'the flushing ' if flush else 'an '}append", stats,
+                    words[kind])
+            else:
+                dbo.tell(state, x, observed[-1])
+            torch.cuda.synchronize()
+            ask_s.append(t1 - t0)
+            tell_s.append((time.perf_counter() - t2, flush))
+        t_iters = sum(ask_s) + sum(t for t, _ in tell_s)
+        t_first = ask_s[0] + tell_s[0][0]
+        launches = dict(_cuda.LAUNCHES)
+        big = state.gp
+        steady = [a + t for a, (t, fl) in zip(ask_s[1:], tell_s[1:])
+                  if not fl]
+        flush_s = [t for t, fl in tell_s if fl]
+        timing = dict(first_iter_s=t_first,
+                      propose_ms=1e3 * float(np.median(ask_s[1:])),
+                      append_ms=1e3 * float(np.median(
+                          [t for t, fl in tell_s[1:] if not fl])),
+                      flush_s=flush_s, steady_iters_per_s=len(steady)
+                      / sum(steady))
+        log(f"dist path (a): {DIST_ITERS} iterations {t_iters:.3f} s = "
+            f"{DIST_ITERS / t_iters:.3f} iters/s (n {DIST_INIT} -> {big.n}, "
+            f"base_n {big.base_n}); the first {t_first:.3f} s; then a "
+            f"proposal {timing['propose_ms']:.1f} ms and an append "
+            f"{timing['append_ms']:.1f} ms (medians), "
+            f"{timing['steady_iters_per_s']:.3f} iters/s without the flush, "
+            f"which took {', '.join(f'{t:.3f}' for t in flush_s)} s "
+            f"(the host clock to a synchronize)")
+        log(f"  launches: {launches}")
+        if big.n != DIST_INIT + DIST_ITERS or big.base_n == DIST_INIT:
+            raise AssertionError("dist path (a): no flush, or a lost append")
+        if not set(audit) >= {"add", "flush"}:
+            raise AssertionError("dist path (a): an append went unaudited")
+        if state.best_value != max(observed):
+            raise AssertionError(f"dist path (a): best_value "
+                                 f"{state.best_value} != max(observed) "
+                                 f"{max(observed)}")
+        check_finite("dist path (a)", L=big.L, alpha=big.alpha,
+                     Kq=big.Kq.float())
+        per = (STEPS + 2) * DIST_ITERS
+        check_counts("dist path (a)", launches, {
+            "panel_factor": (N // 128, N // 128), "gram": (per + 1, per + 1),
+            "mirror_mm": (per, per), "trimv": (0, 0), "gram_train": (0, 0),
+            "tri_inv_panel": (0, 0)})
+        Xq = torch.rand((RESTARTS, DIM), generator=gen, device=dev)
+        with uncounted():
+            gpv = gp_mod.GP(kernel=big.kernel, mean=big.mean, x=big.x,
+                            y=big.y, n=big.n, L=big.L, alpha=big.alpha)
+            errs["posterior"] = check_posterior_exact(gpv, Xq)
+            with torch.no_grad():
+                mu_c, var_c = big_query(big, Xq)
+            mu64, var64 = posterior_f64(gpv, Xq)
+            errs["cached_var_vs_f64"] = float(
+                (var_c.double() - var64).abs().max())
+            errs["cached_mu_vs_f64"] = float(
+                (mu_c.double() - mu64).abs().max())
+            log(f"  not held: the cached posterior through the bf16 panel "
+                f"vs f64: mu {errs['cached_mu_vs_f64']:.3e}, var "
+                f"{errs['cached_var_vs_f64']:.3e}")
+            errs["kernels"] = bo_kernel_checks("dist path (a)", gpv, None,
+                                               gen, dev)
+            errs.update(dist_mirror_check(big, Xq))
+        out["a"] = dict(fit_s=fit.s, build_s=build.s,
+                        iters_per_s=DIST_ITERS / t_iters, **timing,
+                        resident_gb=resident / 1e9,
+                        fit_peak_gb=(fit.peak - base) / 1e9,
+                        build_peak_gb=(build.peak - base) / 1e9,
+                        psum_words=audit,
+                        best_value=state.best_value, errs=errs)
+        counts["dist_a"] = launches
+        del state, big, gpv, dbo, fit, build
+        torch.cuda.empty_cache()
+
+        # ---- (b) ----
+        from limbo_tpu_torch.parallel.sharded_acq import (
+            ShardColsGPView, make_sharded_bo_iter, shard_cache_cols,
+            sharded_query_cached)
+
+        path = MainPath(dev, gen)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        gp = path.fit()
+        cache = path.build(gp)
+        gp_r, cache_r = clone_state(gp, cache)
+        mesh_c = pmesh.make_mesh(axis_name="cols")
+        cache = shard_cache_cols(mesh_c, cache)
+        step = make_sharded_bo_iter(mesh_c, path.objective, path.acq,
+                                    path.opt)
+        g_b = torch.Generator(device=dev).manual_seed(seed + 13)
+        xs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(DIST_ITERS):
+            gp, cache, x, _ = step(gp, cache, g_b, it)
+            xs.append(x)
+            if it == 0:
+                torch.cuda.synchronize()
+                t_first = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        launches_b = dict(_cuda.LAUNCHES)
+        log(f"dist path (b): make_sharded_bo_iter at n = {N_POINTS}, "
+            f"N = {gp.capacity}: {DIST_ITERS} iterations {t_b:.3f} s = "
+            f"{DIST_ITERS / t_b:.3f} iters/s, the first {t_first:.3f} s "
+            f"(base_n {cache.base_n})")
+        log(f"  launches: {launches_b}")
+        check_counts("dist path (b)", launches_b, {
+            "gram_train": (1, None), "tri_inv_panel": (1, None),
+            "gram": ((STEPS + 2) * DIST_ITERS, None),
+            "mirror_mm": ((STEPS + 2) * DIST_ITERS, None),
+            "trimv": (2 * DIST_ITERS, 2 * DIST_ITERS)})
+        if cache.base_n == N_POINTS:
+            raise AssertionError("dist path (b): no deferred flush happened")
+        with uncounted():
+            for x in xs:
+                gp_r, cache_r = path.append(gp_r, cache_r, x)
+            pairs = {k: (getattr(gp, k), getattr(gp_r, k))
+                     for k in ("x", "y", "L", "alpha")}
+            pairs.update({k: (getattr(cache, k), getattr(cache_r, k))
+                          for k in ("Kinv", "Kinv_q", "Linv", "P", "ay",
+                                    "u_ones")})
+            differ = [k for k, (a, b) in pairs.items() if not same_bits(a, b)]
+            if differ or cache.base_n != cache_r.base_n:
+                raise AssertionError(f"dist path (b): the sharded state "
+                                     f"differs from the single-card "
+                                     f"appends in {differ}")
+            log(f"  the sharded state == the single-card deferred appends "
+                f"of the same points, bit for bit: {', '.join(pairs)}: ok")
+            Xq = torch.rand((RESTARTS, DIM), generator=gen, device=dev)
+            with torch.no_grad():
+                mu_s, var_s = sharded_query_cached(ShardColsGPView(
+                    gp=gp, cache=cache, axis=pmesh.mesh_axis(mesh_c)), Xq)
+                mu_r, var_r = gp_mod.query_cached(gp_r, cache_r, Xq)
+            if not same_bits(mu_s, mu_r):
+                raise AssertionError("dist path (b): the sharded cached mean "
+                                     "differs from the single-card one")
+            var_gap = float((var_s - var_r).abs().max())
+            log(f"  sharded cached mean == single-card, bit for bit; var "
+                f"gap {var_gap:.3e} (not held: the pending correction is "
+                f"summed apart from the panel's quadratic form)")
+            errs_b = dict(var_gap=var_gap,
+                          posterior=check_posterior(gp_r, cache_r, Xq),
+                          kernels=bo_kernel_checks("dist path (b)", gp_r,
+                                                   cache_r, gen, dev))
+            # the sharded and the single-card iteration in turns from the
+            # equal states (sharded, single, single, sharded), each group
+            # DIST_RATE_ITERS iterations to a synchronize
+            rates = {"sharded": [], "single": []}
+            for who in ("sharded", "single", "single", "sharded"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for it in range(DIST_RATE_ITERS):
+                    if who == "sharded":
+                        gp, cache, _, _ = step(gp, cache, g_b, it)
+                    else:
+                        gp_r, cache_r = path.iterate(gp_r, cache_r, g_b)
+                torch.cuda.synchronize()
+                rates[who].append(DIST_RATE_ITERS
+                                  / (time.perf_counter() - t0))
+            log(f"  iters/s in turns, sharded / single-card: "
+                f"{rates['sharded'][0]:.3f} / {rates['single'][0]:.3f}, "
+                f"{rates['single'][1]:.3f} / {rates['sharded'][1]:.3f}")
+        out["b"] = dict(iters_per_s=DIST_ITERS / t_b, first_iter_s=t_first,
+                        rates_in_turns=rates, errs=errs_b)
+        counts["dist_b"] = launches_b
+        del gp, cache, gp_r, cache_r, path, step
+        torch.cuda.empty_cache()
+
+        # ---- (c) ----
+        _cuda.reset_launches()
+        out["c"] = dist_small(dev, gen)
+        counts["dist_c"] = dict(_cuda.LAUNCHES)
+        log(f"dist path (c): launches {counts['dist_c']}")
+        return out, counts
+    finally:
+        group.close()
+
+
+def dist_small(dev, gen) -> dict:
+    """dist path (c): the rest of the layer at small sizes on the card."""
+    from limbo_tpu_torch.kernels.base import JITTER
+    from limbo_tpu_torch.models import gp as gp_mod
+    from limbo_tpu_torch.opt import Cmaes, Nsga2, Rprop
+    from limbo_tpu_torch.parallel import mesh as pmesh
+    from limbo_tpu_torch.parallel.distributed_gp import sharded_cg_fit_alpha
+    from limbo_tpu_torch.parallel.dryrun import run_dryrun
+    from limbo_tpu_torch.parallel.sharded import (row_sharded_posterior_mean,
+                                                  sharded_restart_opt)
+    from limbo_tpu_torch.parallel.sharded_chol import sharded_fit
+
+    out = dict(step_loops=step_loop_ops(dev, gen))
+    dry = run_dryrun()
+    check_finite("dist path (c) dry run", **dry)
+    log(f"dist path (c): run_dryrun ok ({', '.join(dry)})")
+    mesh = pmesh.make_mesh(axis_name="rows")
+    path = MainPath(dev, gen, n=DIST_CG_N, capacity=DIST_CG_N, ell=HP_ELL,
+                    noise=HP_NOISE, y_noise=HP_Y_NOISE)
+    gp = path.fit()
+    mask = gp.mask
+    c = (gp.y - gp.mean(gp.x)) * mask[:, None]
+    alpha = sharded_cg_fit_alpha(mesh, gp.kernel, gp.x, mask, c)
+    # the CG's own operator (models/iterative.py's): K masked + (noise +
+    # JITTER) I, in f64 from the f32 covariance
+    K64 = (gp.kernel.gram(gp.x, gp.x) * mask[:, None] * mask[None, :]
+           ).double()
+    K64.diagonal().add_(((gp.kernel.noise + JITTER) * mask
+                         + (1.0 - mask)).double())
+    res = float((K64 @ alpha.double() - c.double()).norm()
+                / c.double().norm())
+    gap = float((alpha - gp.alpha).abs().max() / gp.alpha.abs().max())
+    del K64
+    log(f"  sharded_cg_fit_alpha (n = {DIST_CG_N}): relative residual "
+        f"{res:.3e} in f64 (limit 10 x the CG tolerance 1e-5), alpha vs "
+        f"the exact solve {gap:.3e} of its largest entry (limit 1e-2)")
+    if not (res <= 1e-4 and gap <= 1e-2):
+        raise AssertionError("dist path (c): the sharded CG solve")
+    Xq = torch.rand((RESTARTS, DIM), generator=gen, device=dev)
+    mu = row_sharded_posterior_mean(mesh, gp.kernel, gp.x * mask[:, None],
+                                    gp.alpha, gp.mean(Xq), Xq)
+    with torch.no_grad():
+        mu_r, _ = gp_mod.query(gp, Xq)
+        ks = gp.kernel.gram(Xq, gp.x) * mask[None, :]
+    tol = (DIST_CG_N ** 0.5 * F32_U * (ks.abs() @ gp.alpha.abs())
+           + F32_U * mu_r.abs())
+    out["row_mean"] = check_close("row_sharded_posterior_mean vs query", mu,
+                                  mu_r, tol, "sqrt(N) 2^-24 |ks| @ |alpha|")
+    out.update(cg_residual=res, cg_alpha_gap=gap)
+
+    def sphere(Z):
+        return -torch.sum((Z - 0.3) ** 2, dim=1)
+
+    init = torch.full((DIM,), 0.5, device=dev)
+    r = sharded_restart_opt(mesh, Rprop(iterations=STEPS), sphere, init,
+                            torch.Generator(device=dev).manual_seed(1), True,
+                            restarts_per_device=RESTARTS, axis="rows")
+    starts = torch.rand((RESTARTS, DIM), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    starts[0] = init
+    whole = Rprop(iterations=STEPS)(sphere, starts, None, True)
+    i = torch.argmax(whole.value)
+    z = torch.randn((2, 20, 12, DIM), generator=gen, device=dev)
+    cm = Cmaes(iterations=20, pop_size=12, restarts=2)
+    a = replace_mesh(cm, mesh).from_draws(sphere, init, z)
+    b = cm.from_draws(sphere, init, z)
+
+    def two(Z):
+        return torch.stack([sphere(Z), -torch.sum(Z ** 2, dim=1)], dim=1)
+
+    ea = Nsga2(pop_size=64, generations=10)
+    Xa, Ya = replace_mesh(ea, mesh)(two, DIM, torch.Generator(
+        device=dev).manual_seed(2))
+    Xb, Yb = ea(two, DIM, torch.Generator(device=dev).manual_seed(2))
+    same = dict(restarts=same_bits(r.x, whole.x[i]),
+                cmaes=same_bits(a.x, b.x) and same_bits(a.value, b.value),
+                nsga2=same_bits(Xa, Xb) and same_bits(Ya, Yb))
+    log(f"  with a mesh against unsplit runs, bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"dist path (c): {same}")
+    try:
+        sharded_fit(mesh, gp.kernel, gp.mean, gp.x[:256], gp.y[:256],
+                    block=64)
+    except ValueError as e:
+        log(f"  a sharded fit at block 64 raises on the card: {e}")
+    else:
+        raise AssertionError("dist path (c): a block the panel kernel lacks "
+                             "did not raise")
+    return out
+
+
+def replace_mesh(opt, mesh):
+    """A copy of an optimizer dataclass with `mesh` set."""
+    import dataclasses
+
+    return dataclasses.replace(opt, mesh=mesh)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3996,11 +4603,13 @@ def main() -> int:
     mo, mo_counts = mo_path(dev, gen)
     cbo, cbo_counts = cbo_path(dev, gen)
     persist, persist_counts = persist_path(dev, gen)
+    torch.cuda.empty_cache()
+    dist, dist_counts = dist_path(dev, gen, args.seed)
     by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts,
                "graph_eager_n10k": graph_e, "graph_n10k": graph_c,
                **jit_counts, **suite_counts, **lite_counts, **modes_counts,
                **models_counts, **mo_counts, **cbo_counts,
-               **persist_counts}
+               **persist_counts, **dist_counts}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
              "bytes_share", "launch_floor_ms", "turns", "blocked")
@@ -4049,6 +4658,7 @@ def main() -> int:
     print(json.dumps({"mo_path": mo | {"card": card}}))
     print(json.dumps({"cbo_path": cbo | {"card": card}}))
     print(json.dumps({"persist_path": persist | {"card": card}}))
+    print(json.dumps({"dist_path": dist | {"card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

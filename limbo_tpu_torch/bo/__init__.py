@@ -1,12 +1,13 @@
 """Bayesian-optimization loops (port of limbo_tpu/bo): the single-objective
-``BOptimizer`` with its init designs, stop criteria and stats writers, and
-``BOptimizerHPOpt``."""
+``BOptimizer`` with its init designs, stop criteria and stats writers,
+``BOptimizerHPOpt``, and ``DistributedBOptimizer``, the loop over a mesh."""
 
 from __future__ import annotations
 
 import torch
 
 from limbo_tpu_torch.bo import stats
+from limbo_tpu_torch.bo.distributed import DistributedBOptimizer
 from limbo_tpu_torch.bo.init_designs import (LHS, GridSampling, NoInit,
                                              RandomSampling,
                                              RandomSamplingGrid)
@@ -21,7 +22,7 @@ __all__ = [
     "BOptimizer", "BOState", "EvaluationError", "default_acqui_optimizer",
     "RandomSampling", "RandomSamplingGrid", "GridSampling", "LHS", "NoInit",
     "MaxIterations", "MaxPredictedValue", "stats", "BOptimizerHPOpt",
-    "default_hp_opt",
+    "default_hp_opt", "DistributedBOptimizer",
 ]
 
 

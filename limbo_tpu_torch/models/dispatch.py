@@ -18,6 +18,13 @@ def query_any(model, Xq) -> Tuple[torch.Tensor, torch.Tensor]:
     from limbo_tpu_torch.models import (gp as gp_mod, iterative, multi_gp,
                                         sparse_gp, spgp)
 
+    # the model-protocol hook of the distribution layer's models
+    # (parallel/sharded_acq.ShardColsGPView, parallel/sharded_big.BigGP),
+    # as the reference's dispatch reads it
+    # (limbo_tpu/models/dispatch.py:27-29)
+    query_posterior = getattr(model, "query_posterior", None)
+    if query_posterior is not None:
+        return query_posterior(Xq)
     if isinstance(model, gp_mod.GP):
         return gp_mod.query(model, Xq)
     if isinstance(model, gp_mod.CachedGPView):

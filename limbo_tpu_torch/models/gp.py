@@ -45,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -603,18 +603,9 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
     with and once without it (bo/graph.py).
     """
     i = gp.n
-    if i >= gp.capacity:
-        raise ValueError(f"GP is full (capacity {gp.capacity})")
     mask = gp.mask
-    dtype = gp.x.dtype
-    x_new = torch.as_tensor(x_new, dtype=dtype, device=gp.x.device)
-    y_new = torch.as_tensor(y_new, dtype=dtype, device=gp.x.device)
-
-    k_vec = gp.kernel.gram(x_new[None, :], gp.x)[0] * mask           # (N,)
-    diag_add = gp.kernel.train_diag_add(x_new[None, :])[0]
-    kappa = gp.kernel.k_diag(x_new[None, :])[0] + diag_add
-    s_floor = torch.maximum(diag_add, effective_jitter(dtype) * kappa)
-    e_i = _onehot(gp.capacity, gp.n_dev, gp.x)
+    x_new, y_new, k_vec, kappa, e_i, s_floor = _append_terms(gp, x_new,
+                                                             y_new)
     if fast_update == "deferred":
         return _add_sample_deferred(gp, cache, x_new, y_new, k_vec, kappa,
                                     e_i, s_floor, flush)
@@ -649,6 +640,24 @@ def add_sample_cached(gp: GP, cache: QueryCache, x_new, y_new,
     if cache.Kinv_q is not None:
         cache.Kinv_q.copy_(Kinv)
     return gp2.replace(mean=mean, alpha=alpha), cache
+
+
+def _append_terms(gp: GP, x_new, y_new):
+    """The terms every cached append starts from: x_new and y_new in the
+    GP's dtype and device, k = k(x_new, X) masked (N,), kappa = k(x_new,
+    x_new) + the noise, e_i (the device one-hot of row n) and the Schur
+    floor max(diag_add, eps_eff * kappa)."""
+    if gp.n >= gp.capacity:
+        raise ValueError(f"GP is full (capacity {gp.capacity})")
+    dtype = gp.x.dtype
+    x_new = torch.as_tensor(x_new, dtype=dtype, device=gp.x.device)
+    y_new = torch.as_tensor(y_new, dtype=dtype, device=gp.x.device)
+    k_vec = gp.kernel.gram(x_new[None, :], gp.x)[0] * gp.mask        # (N,)
+    diag_add = gp.kernel.train_diag_add(x_new[None, :])[0]
+    kappa = gp.kernel.k_diag(x_new[None, :])[0] + diag_add
+    s_floor = torch.maximum(diag_add, effective_jitter(dtype) * kappa)
+    e_i = _onehot(gp.capacity, gp.n_dev, gp.x)
+    return x_new, y_new, k_vec, kappa, e_i, s_floor
 
 
 def _pivot(gp: GP, cache: QueryCache, k_vec, fast_update
@@ -690,7 +699,8 @@ def _pivot(gp: GP, cache: QueryCache, k_vec, fast_update
 
 
 def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
-                         kappa, e_i, s_floor, flush=None
+                         kappa, e_i, s_floor, flush=None,
+                         flush_into: Optional[Callable] = None
                          ) -> Tuple[GP, QueryCache]:
     """The "deferred" cached append (limbo_tpu/models/gp.py:778-884).
 
@@ -702,6 +712,9 @@ def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
     the maintained Linv (_mirror_from_linv), with ay and u_ones re-derived
     from Linv.  Between flushes alpha comes from the exact bordered
     recurrences of ay and u_ones (constant-type means only).
+    ``flush_into(cache, pend, rhs)`` applies a flush to the cache's query
+    matrices in place and returns K^{-1} rhs; by default _flush_local
+    (parallel/sharded_acq.py passes its column-panel flush).
     """
     if cache.Linv is None or cache.P is None:
         raise ValueError("deferred updates need QueryCache.build("
@@ -746,27 +759,7 @@ def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
         idx = torch.arange(gp.capacity, device=P.device)
         pend = ((idx >= cache.base_n_dev) & (idx <= i_dev)).to(P.dtype)
         rhs = torch.cat([ym, mask2[:, None]], dim=1)
-        Kinv = cache.Kinv
-        if Kinv is not None:
-            Kinv.addmm_(P, P.T)
-            Kinv.diagonal().sub_(pend)
-            a = Kinv @ rhs
-            if cache.Kinv_q is not None:
-                cache.Kinv_q.copy_(Kinv)
-        else:
-            # lite: the mirror is the only N x N query matrix
-            mirror = cache.Kinv_q
-            if mirror.dtype == P.dtype:
-                mirror.addmm_(P, P.T)
-                mirror.diagonal().sub_(pend)
-            else:
-                # a low-precision mirror absorbs an in-place rank-m add
-                # (the correction is below its rounding step, which left
-                # the variance off by O(prior) in the reference's
-                # measurement, limbo_tpu/models/gp.py:849-857): rebuild it
-                # from the maintained Linv, panel by panel, in place
-                _mirror_from_linv(cache.Linv, mirror.dtype, out=mirror)
-            a = _linv_solve(cache.Linv, rhs)
+        a = (flush_into or _flush_local)(cache, pend, rhs)
         P.zero_()
         cache = cache.replace(base_n=i + 1, base_n_dev=i_dev + 1,
                               ay=a[:, :-1], u_ones=a[:, -1])
@@ -776,6 +769,32 @@ def _add_sample_deferred(gp: GP, cache: QueryCache, x_new, y_new, k_vec,
     mu_bar = mean(x_new[None, :])[0]      # constant-type means: (p,)
     alpha = cache.ay - cache.u_ones[:, None] * mu_bar[None, :]
     return gp2.replace(mean=mean, alpha=alpha), cache
+
+
+def _flush_local(cache: QueryCache, pend, rhs) -> torch.Tensor:
+    """The deferred flush on one device: Kinv += P P^T, the pending
+    identity slots (``pend``) cancelled on its diagonal, the mirror
+    refreshed; returns K^{-1} rhs."""
+    P, Kinv = cache.P, cache.Kinv
+    if Kinv is not None:
+        Kinv.addmm_(P, P.T)
+        Kinv.diagonal().sub_(pend)
+        if cache.Kinv_q is not None:
+            cache.Kinv_q.copy_(Kinv)
+        return Kinv @ rhs
+    # lite: the mirror is the only N x N query matrix
+    mirror = cache.Kinv_q
+    if mirror.dtype == P.dtype:
+        mirror.addmm_(P, P.T)
+        mirror.diagonal().sub_(pend)
+    else:
+        # a low-precision mirror absorbs an in-place rank-m add (the
+        # correction is below its rounding step, which left the variance
+        # off by O(prior) in the reference's measurement,
+        # limbo_tpu/models/gp.py:849-857): rebuild it from the maintained
+        # Linv, panel by panel, in place
+        _mirror_from_linv(cache.Linv, mirror.dtype, out=mirror)
+    return _linv_solve(cache.Linv, rhs)
 
 
 

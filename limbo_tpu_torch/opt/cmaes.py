@@ -17,7 +17,12 @@ adaptation):
 * the covariance's eigendecomposition is ``ops/sym_eig.py`` (a kernel on
   the card, with no host read-back, so a generation runs inside a captured
   BO iteration).  Its eigenvalues ascend as LAPACK's; an eigenvector's sign
-  may differ from another solver's, which flips the matching column of z.
+  may differ from another solver's, which flips the matching column of z;
+* with a ``mesh`` (a DeviceMesh, parallel/mesh.py) each generation's
+  population is evaluated split over the ranks of ``mesh_axis``
+  (parallel/sharded.make_sharded_pop_eval, the multi-card
+  ``set_mt_feval``), lambda rounded up to a multiple of the axis size;
+  every rank runs the rest, from draws seeded alike.
 """
 
 from __future__ import annotations
@@ -61,22 +66,22 @@ class Cmaes:
     pop_size: int = 0        # 0 -> Hansen's default 4 + floor(3 ln d)
     sigma0: float = 0.3
     restarts: int = 1
-    # the reference shards the population over a device mesh; the port's
-    # multi-GPU layer is not written yet
+    # optional DeviceMesh: the population's evaluation splits over
+    # `mesh_axis` (default its first dimension)
     mesh: object = None
     mesh_axis: str = None
 
-    def __post_init__(self):
-        if self.mesh is not None or self.mesh_axis is not None:
-            raise NotImplementedError(
-                "Cmaes(mesh=...) is not ported to limbo_tpu_torch yet "
-                "(ROADMAP.md queue 1, item 7)")
-
     def pop(self, d: int) -> int:
-        """lambda (at least 4)."""
+        """lambda (at least 4; with a mesh, a multiple of its axis)."""
         lam = (self.pop_size if self.pop_size > 0
                else 4 + int(3 * math.log(d)) if d > 1 else 4)
-        return max(lam, 4)
+        lam = max(lam, 4)
+        if self.mesh is not None:
+            from limbo_tpu_torch.parallel.mesh import mesh_axis
+
+            size = mesh_axis(self.mesh, self.mesh_axis).size
+            lam = -(-lam // size) * size
+        return lam
 
     def __call__(self, fun: Callable, init: torch.Tensor,
                  generator: torch.Generator, bounded: bool = True
@@ -92,6 +97,10 @@ class Cmaes:
         """The deterministic rest of __call__, given the draws z
         (restarts, iterations, lambda, d): every generation, then the best
         restart (the first best, as jnp.argmax picks)."""
+        if self.mesh is not None:
+            from limbo_tpu_torch.parallel.sharded import make_sharded_pop_eval
+
+            fun = make_sharded_pop_eval(self.mesh, fun, axis=self.mesh_axis)
         state = self.init_state(init, z.shape[0], bounded)
         for t in range(z.shape[1]):
             state = self.generation(fun, state, z[:, t], bounded)

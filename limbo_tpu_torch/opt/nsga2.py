@@ -121,16 +121,12 @@ class Nsga2:
     generations: int = 50
     eta_c: float = 15.0
     eta_m: float = 20.0
-    # the reference shards the population's evaluation over a device mesh;
-    # the port's multi-GPU layer is not written yet
+    # optional DeviceMesh: the population's evaluation splits over
+    # `mesh_axis` (default its first dimension; parallel/sharded.
+    # make_sharded_pop_eval), pop_size rounded up to a multiple of the
+    # axis size; every rank runs the rest, from draws seeded alike
     mesh: object = None
     mesh_axis: str = None
-
-    def __post_init__(self):
-        if self.mesh is not None or self.mesh_axis is not None:
-            raise NotImplementedError(
-                "Nsga2(mesh=...) is not ported to limbo_tpu_torch yet "
-                "(ROADMAP.md queue 1, item 7)")
 
     def __call__(self, fun: Callable, dim: int, generator: torch.Generator,
                  dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -138,6 +134,13 @@ class Nsga2:
         device.  Returns the final population (X (P, d), Y (P, M)); the
         caller extracts fronts with ops.pareto."""
         P = self.pop_size
+        if self.mesh is not None:
+            from limbo_tpu_torch.parallel.mesh import mesh_axis
+            from limbo_tpu_torch.parallel.sharded import make_sharded_pop_eval
+
+            size = mesh_axis(self.mesh, self.mesh_axis).size
+            P = -(-P // size) * size
+            fun = make_sharded_pop_eval(self.mesh, fun, axis=self.mesh_axis)
         kw = dict(generator=generator, dtype=dtype, device=generator.device)
         X = torch.rand((P, dim), **kw)
         Y = fun(X)

@@ -194,7 +194,8 @@ def test_cmaes_restarts_match_reference(monkeypatch):
 
 def test_cmaes_draws_and_mesh():
     """__call__ draws z up front (restarts, iterations, lambda, d) and hands
-    them to from_draws; a mesh is not ported."""
+    them to from_draws; with a mesh (one gloo rank here) the population's
+    evaluation is split over it and the result keeps its bits."""
     cm = Cmaes(iterations=3, pop_size=6, restarts=2)
     fun = _objectives(jfun.SPHERE)[1]
     init = torch.full((2,), 0.5, **F64)
@@ -204,8 +205,12 @@ def test_cmaes_draws_and_mesh():
                     **F64)
     res2 = cm.from_draws(fun, init, z)
     assert torch.equal(res.x, res2.x) and torch.equal(res.value, res2.value)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Cmaes(mesh=object())
+    from limbo_tpu_torch.parallel.mesh import make_mesh, start_group
+
+    with start_group(device="cpu"):
+        res3 = Cmaes(iterations=3, pop_size=6, restarts=2,
+                     mesh=make_mesh()).from_draws(fun, init, z)
+    assert torch.equal(res.x, res3.x) and torch.equal(res.value, res3.value)
 
 
 def _direct_pair(fn, monkeypatch, rounds=8, S=4, seed=5):

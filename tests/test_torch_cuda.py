@@ -175,7 +175,10 @@ def test_tri_inv_panel_zero_pivot_stays_in_its_block(dev, b, r):
     # not 16-byte multiples, the main path's N = 10240 at the query's q = 64
     (1, 1000, 1000), (65, 1000, 1003), (65, 129, 1001), (64, 10240, 10240),
     # the hp path's depth
-    (64, 16896, 1024)])
+    (64, 16896, 1024),
+    # a rank's (N, N / 2) column panel of K^-1 over 2 ranks
+    # (parallel/sharded_acq.py), at the ascent's q and the sweep's
+    (64, 10240, 5120), (1024, 4096, 2048)])
 def test_mirror_mm_on_the_card_sums_in_f32(dev, q, K, N):
     """The bf16 mirror product on the card (the exact-sum kernel) returns
     f32 sums of the exact products of its bf16 operands: within the f32

@@ -387,8 +387,24 @@ def test_nsga2_finds_schaffer_front():
 
 
 def test_nsga2_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        nsga2.Nsga2(mesh=object())
+    """A mesh axis the mesh lacks raises; the mesh's own axis (one gloo
+    rank here) splits the evaluation and keeps the unsplit run's bits."""
+    from limbo_tpu_torch.parallel.mesh import make_mesh, start_group
+
+    def objs(X):
+        return torch.stack([-X.sum(dim=1), X.sum(dim=1)], dim=1)
+
+    with start_group(device="cpu"):
+        mesh = make_mesh(axis_name="pop")
+        with pytest.raises(ValueError, match="no axis 'rows'"):
+            nsga2.Nsga2(pop_size=8, generations=2, mesh=mesh,
+                        mesh_axis="rows")(objs, 2,
+                                          torch.Generator().manual_seed(0))
+        split = nsga2.Nsga2(pop_size=8, generations=2, mesh=mesh)(
+            objs, 2, torch.Generator().manual_seed(0))
+    whole = nsga2.Nsga2(pop_size=8, generations=2)(
+        objs, 2, torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(split, whole))
 
 
 # ---------------------------------------------------------------------------
