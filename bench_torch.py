@@ -32,9 +32,10 @@ vs_baseline: the captured rate over bench.py's NumPy f64 loop on the host
 posterior evaluation of the schedule against the real K^-1, best of two
 iterations (not charged for gradients, so the ratio is a lower bound).
 
-Precision is the port's default: f32 matmuls in full f32 (TF32 off).
-bench.py's LIMBO_TPU_FAST_MATMUL opt-in is not ported; the unit string says
-which precision ran.
+Precision is the process's: exact f32 (TF32 off) unless
+LIMBO_TPU_FAST_MATMUL is set, which bench.py sets by default and this
+script does not (limbo_tpu_torch/utils/precision.py: TF32 where the JAX
+package leaves its default precision); the unit string says which ran.
 """
 
 from __future__ import annotations
@@ -197,11 +198,15 @@ def bench_numpy(n: int = N_POINTS, d: int = DIM, iters: int = 2) -> float:
 
 def result_line(res: dict, numpy_rate: float, card: str, n: int) -> dict:
     """The one JSON line: the captured rate as the value."""
+    from limbo_tpu_torch.utils import precision
+
+    tf32 = ("TF32 at the fast-mode sites" if precision.fast_mode()
+            else "TF32 off")
     return {
         "metric": METRIC,
         "value": res["captured"],
         "unit": (f"BO iters/s at n={n} obs, d={DIM}, {QUERIES_PER_ITER} "
-                 f"posterior evals/iter, f32 (TF32 off), bf16 K^-1 mirror, "
+                 f"posterior evals/iter, f32 ({tf32}), bf16 K^-1 mirror, "
                  f"CUDA-graph replay of the iteration; on {card}; "
                  "uncaptured = the same step run eagerly, alternated in one "
                  "process; vs_baseline = captured over a measured "
@@ -219,7 +224,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_torch: CUDA is not available", file=sys.stderr)
         return 1
-    import limbo_tpu_torch  # noqa: F401  (precision policy: TF32 off)
+    import limbo_tpu_torch  # noqa: F401  (reads LIMBO_TPU_FAST_MATMUL)
     from chip_smoke import card_line
     from limbo_tpu_torch.ops import _cuda
 

@@ -193,7 +193,24 @@ Run from the repository root on a machine with one NVIDIA H100:
    the sharded CG, the row-sharded mean, the restart fan-out and CMA-ES /
    NSGA-II with a mesh against their unsplit runs, and a block the panel
    kernel lacks, which must raise.
-17. Prints a JSON line of each path's numbers, a JSON line of per-kernel
+17. fast path (``fast_path``): the fast-matmul mode (LIMBO_TPU_FAST_MATMUL,
+   limbo_tpu_torch/utils/precision.py), switched in the process.  (a)
+   the main path's workload fitted from one seed in exact mode and in fast
+   mode: the exact sites (the gram and gram_train kernels, the fit's factor
+   and alpha, tri-inv, K^-1, the bf16 mirror, the distance product, trimv,
+   the mirror product) bit-equal across the modes, a fast site moved; in
+   fast mode 40 eager iterations against 40 replays of graphs captured
+   under the mode, bit for bit past one flush; the posterior's gaps to
+   f64 in both modes and the captured and eager rates of both modes
+   printed.  (b) scripts/torch_large_n_bench.py at n = 10240, 16384 and
+   24576 in fast mode: finite, the launches, its JSON lines, and each
+   final posterior against f64 by check_posterior_exact's rule at TF32's
+   rounding (2^-11) for the mean (check_posterior_fast), with a control
+   whose fast sites run in bf16 that must miss it.  (c) every ported example and tutorial (examples/torch,
+   tutorials/torch) at its defaults in fast mode, each against its
+   documented output (the multi-objective examples' problems run in
+   ``mo_path``).  The process's mode (exact) is restored after it.
+18. Prints a JSON line of each path's numbers, a JSON line of per-kernel
    numbers, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -209,6 +226,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -309,6 +327,20 @@ CLI_SAMPLES, CLI_ITERS, CLI_RUNS = 4096, 10, 2
 # workload; (c) the sharded CG at DIST_CG_N points
 DIST_N, DIST_INIT, DIST_ITERS, DIST_DEFER_M = 32_768, 32_640, 40, 32
 DIST_CG_N, DIST_RATE_ITERS = 4096, 10
+# slice 14, the fast path: bench.py's workload in both precision modes
+# from one seed, FAST_ITERS iterations eager against captured in fast mode
+# (past one flush), and the rates in FAST_RATE_GROUPS alternated groups of
+# FAST_RATE_ITERS.  TF32 keeps 10 of f32's 23 mantissa bits, so a fast
+# product reads its operands rounded by up to TF32_U of themselves (f32:
+# F32_U; bf16, the control's, keeps 7: 2^-8)
+FAST_ITERS, FAST_RATE_GROUPS, FAST_RATE_ITERS = 40, 2, 10
+TF32_U = 2.0 ** -11
+# the fast-mode mean's limit, in units of its move under TF32_U
+# (check_posterior_fast): between the fast runs' largest reading (2.49) and
+# the smallest of the bf16 control's (19.2) on the large-n bench's states
+# at n = 10240 and 16384, as BO_SLACK sits between exact mode's readings
+# and its control's (PERF.md, fast path)
+FAST_SLACK = 2 ** 3
 # the launches of one 190-iteration run of each variant: the sweep's gram
 # (1024 x 256 = 512^2) once an iteration where the ascent maximizes (the
 # ascent's 64 x 256 and the hp-opt at capacity 256 stay under the kernels'
@@ -334,6 +366,17 @@ def card_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()
     return out[0]
+
+
+ROOT = Path(__file__).resolve().parent
+
+
+def load_script(rel: str) -> dict:
+    """A script of the checkout (an example, a tutorial, a bench) as the
+    dict of its globals, its __main__ block not run."""
+    import runpy
+
+    return runpy.run_path(str(ROOT / rel), run_name="_chip_smoke")
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -1315,13 +1358,15 @@ class _SetupClock:
         return False
 
 
-def posterior_readings(gp, Xq, control_rel: float) -> dict:
+def posterior_readings(gp, Xq, control_rel: float,
+                       unit: float = F32_U) -> dict:
     """What check_posterior_exact holds: the uncached f32 posterior at Xq
     (mu, var) and the f64 posterior of the stored data (mu64, var64); the
     f64 posterior's move when every input and the terms of every squared
-    distance move by up to one f32 rounding (sens_mu, sens_var); the f32
-    variance's own cancellation (cancel_var); and the f64 posterior's move
-    when the inputs move by up to `control_rel` (control_mu, control_var).
+    distance move by up to one rounding of `unit` (f32's; TF32's in fast
+    mode) (sens_mu, sens_var); the f32 variance's own cancellation
+    (cancel_var); and the f64 posterior's move when the inputs move by up
+    to `control_rel` (control_mu, control_var; none when it is 0).
 
     cancel_var: the f32 variance is k(x, x) - |z|^2, z = L^-1 k(X, x), a
     sum of n squares whose partial sums each round by up to 2^-24 of
@@ -1335,8 +1380,9 @@ def posterior_readings(gp, Xq, control_rel: float) -> dict:
     with torch.no_grad():
         mu, var = gp_mod.query(gp, Xq)
     mu64, var64 = posterior_f64(gp, Xq)
-    mu_s, var_s = posterior_f64(gp, Xq, rel=F32_U, dist=True)
-    mu_c, var_c = posterior_f64(gp, Xq, rel=control_rel)
+    mu_s, var_s = posterior_f64(gp, Xq, rel=unit, dist=True)
+    mu_c, var_c = (posterior_f64(gp, Xq, rel=control_rel) if control_rel
+                   else (mu64, var64))
     kxx = float(torch.exp(2.0 * gp.kernel.log_sigma.double()))
     return dict(mu=mu[:, 0], var=var, mu64=mu64[:, 0], var64=var64,
                 sens_mu=float((mu_s - mu64).abs().max()),
@@ -2366,7 +2412,9 @@ def kernel_rows_at(where, gp, cache, gen, dev) -> dict:
 
 
 def lite_path(dev, gen):
-    """scripts/large_n_bench.py --lite 32768, not cut: n = 32,768, d = 8,
+    """scripts/torch_large_n_bench.py --lite 32768 (its Workload, the
+    counterpart of scripts/large_n_bench.py's), not cut, in the process's
+    mode (exact f32): n = 32,768, d = 8,
     capacity 33,280, SquaredExpARD (l = 0.3, noise 0.09) + DataMean, the
     lite cache (Linv, a bf16 mirror, defer_m = 256, no f32 K^-1), then
     LITE_ITERS iterations of RandomRestarts(Rprop(20), 64, 1024) on UCB
@@ -2386,8 +2434,11 @@ def lite_path(dev, gen):
 
     N = LITE_CAPACITY
     nn4 = N * N * 4
-    path = MainPath(dev, gen, n=LITE_N, capacity=N, ell=HP_ELL,
-                    noise=HP_NOISE, y_noise=HP_Y_NOISE)
+    bench = load_script("scripts/torch_large_n_bench.py")
+    path = bench["Workload"](LITE_N, lite=True, device=dev, generator=gen)
+    if (path.capacity, bench["LITE_DEFER_M"]) != (N, LITE_DEFER_M):
+        raise AssertionError("lite path: the bench's --lite configuration "
+                             "is not the path's")
     torch.cuda.synchronize()
     _cuda.reset_launches()
     t0 = time.perf_counter()
@@ -2396,9 +2447,7 @@ def lite_path(dev, gen):
     t_fit = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cache = gp_mod.QueryCache.build(gp, with_Linv=True,
-                                    qdtype=torch.bfloat16,
-                                    defer_m=LITE_DEFER_M, lite=True)
+    cache = path.build(gp)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     resident = torch.cuda.memory_allocated()
@@ -3117,35 +3166,6 @@ def models_path(dev, gen, data):
     return out, counts
 
 
-def mop2(x):
-    """mop2 (examples/experimental/multi.py, maximized as -f) on [0, 1]^d
-    mapped to [-2, 2]^d, from a numpy array to a (2,) one in f64."""
-    x = np.asarray(x, dtype=np.float64) * 4.0 - 2.0
-    n = len(x)
-    f1 = 1.0 - np.exp(-np.sum((x - 1.0 / np.sqrt(n)) ** 2))
-    f2 = 1.0 - np.exp(-np.sum((x + 1.0 / np.sqrt(n)) ** 2))
-    return np.array([-f1, -f2])
-
-
-def zdt2(x):
-    """zdt2 (examples/experimental/multi.py, maximized as -f)."""
-    x = np.asarray(x, dtype=np.float64)
-    f1 = x[0]
-    g = 1.0 + 9.0 * np.mean(x[1:]) if len(x) > 1 else 1.0
-    return np.array([-f1, -g * (1.0 - (f1 / g) ** 2)])
-
-
-def dtlz2_3(x):
-    """DTLZ2 with 3 objectives (examples/experimental/multi3.py,
-    maximized as -f)."""
-    x = np.asarray(x, dtype=np.float64)
-    g = np.sum((x[2:] - 0.5) ** 2)
-    c1, s1 = np.cos(0.5 * np.pi * x[0]), np.sin(0.5 * np.pi * x[0])
-    c2, s2 = np.cos(0.5 * np.pi * x[1]), np.sin(0.5 * np.pi * x[1])
-    return np.array([-(1 + g) * c1 * c2, -(1 + g) * c1 * s2,
-                     -(1 + g) * s1])
-
-
 class _LastStep:
     """A stats writer that keeps what the loop's last step saw: its model,
     the observed front before the step's points, and the points."""
@@ -3335,6 +3355,10 @@ def mo_path(dev, gen):
 
     out, counts, err = {}, {}, 0.0
     f64 = dict(device=dev, dtype=torch.float64)
+    # the problems of the ported examples (examples/torch/experimental)
+    multi = load_script("examples/torch/experimental/multi.py")
+    mop2, zdt2 = multi["mop2"], multi["zdt2"]
+    dtlz2_3 = load_script("examples/torch/experimental/multi3.py")["dtlz2_3"]
 
     # (a) EHVI on mop2
     last = _LastStep()
@@ -4565,6 +4589,422 @@ def replace_mesh(opt, mesh):
     return dataclasses.replace(opt, mesh=mesh)
 
 
+class _Bf16Sites:
+    """The fast path's control: while active, every product issued while
+    fast mode's TF32 is in force (``precision.in_force() == "tf32"``, the
+    fast sites) reads its f32 operands rounded to bf16, the same sites at
+    bf16's 2^-8 in place of TF32's 2^-11.  Products inside
+    ``precision.exact()``, the kernels and autograd's own backward
+    products are untouched."""
+
+    NAMES = {torch: (("matmul", 0), ("mm", 0), ("addmm", 1)),
+             torch.Tensor: (("__matmul__", 0), ("__rmatmul__", 0),
+                            ("matmul", 0), ("mm", 0), ("addmm", 1),
+                            ("addmm_", 1))}
+
+    def __enter__(self):
+        from limbo_tpu_torch.utils import precision
+
+        def wrap(f, first):
+            def bf16_sites(*args, **kwargs):
+                if precision.in_force() == "tf32":
+                    args = tuple(
+                        a.to(torch.bfloat16).to(a.dtype)
+                        if i >= first and torch.is_tensor(a)
+                        and a.dtype == torch.float32 else a
+                        for i, a in enumerate(args))
+                return f(*args, **kwargs)
+            return bf16_sites
+
+        self.saved = []
+        for owner, names in self.NAMES.items():
+            for name, first in names:
+                f = getattr(owner, name)
+                self.saved.append((owner, name, f))
+                setattr(owner, name, wrap(f, first))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, f in self.saved:
+            setattr(owner, name, f)
+
+
+def fast_state(dev, seed: int):
+    """bench.py's workload (MainPath) fitted and its cache built in the
+    mode in force, from a generator seeded with ``seed``, with readings on
+    that state: the exact sites' (the gram and gram_train kernels, the
+    fit's factor and alpha, tri-inv's Linv, K^-1 from it, the bf16 mirror,
+    the distance product, trimv both ways and the mirror product; bit-equal
+    across the modes) and the fast sites' (ay and u_ones, the build's
+    K^-1 rhs, and the product of 64 query rows with the f32 K^-1, which
+    TF32 moves).  Returns (path, gp, cache, exact, fast)."""
+    from limbo_tpu_torch.ops.chol import tri_inv
+    from limbo_tpu_torch.ops.mirror import mirror_mm
+    from limbo_tpu_torch.ops.trimv import trimv
+    from limbo_tpu_torch.utils.maths import sq_dist
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    path = MainPath(dev, gen)
+    gp = path.fit()
+    cache = path.build(gp)
+    q = torch.rand((SWEEP, DIM), generator=gen, device=dev)
+    with uncounted(), torch.no_grad():
+        ks = gp.kernel.gram(q, gp.x) * gp.mask[None, :]
+        exact = dict(
+            gram=ks, gram_train=gp.kernel.gram_train_masked(gp.x, gp.n),
+            L=gp.L.clone(), alpha=gp.alpha.clone(),
+            Linv=cache.Linv.clone(), tri_inv=tri_inv(gp.L),
+            Kinv=cache.Kinv.clone(), mirror=cache.Kinv_q.clone(),
+            dist=sq_dist(q[:RESTARTS], gp.x),
+            trimv=trimv(cache.Linv, ks[0]),
+            trimv_t=trimv(cache.Linv, ks[0], transpose=True),
+            mirror_mm=mirror_mm(ks[:RESTARTS], cache.Kinv_q))
+        fast = dict(ay=cache.ay.clone(), u_ones=cache.u_ones.clone(),
+                    quad_f32=ks[:RESTARTS] @ cache.Kinv)
+    return path, gp, cache, exact, fast
+
+
+def check_posterior_fast(gp, Xq, control=None) -> dict:
+    """The uncached posterior at Xq in fast mode against the f64 posterior
+    of the stored data, by check_posterior_exact's rule at TF32's
+    rounding.  A fast site reads its f32 operands rounded to 10 mantissa
+    bits, by up to TF32_U = 2^-11 of themselves where an exact one rounds
+    by 2^-24; those operands (alpha, K^-1, the pending pivots, the
+    cross-covariances) are functions of the stored data and the kernel's
+    parameters, so to first order the f64 posterior's move when every
+    input moves by up to 2^-11 is the mean's unit, as 2^-24's is in exact
+    mode (the distance product stays exact in fast mode, so its terms keep
+    f32's rounding, a move below 1% of that one on these states): mu
+    within FAST_SLACK of those units.  The variance reads no TF32 product
+    (query's variance is a triangular solve on L, exact in both modes, whose
+    appended rows come from the trimv kernel), so it is held to exact
+    mode's own limit (check_posterior_exact's).  The control is a run, not
+    a move of the inputs: the same workload with every fast site's
+    operands rounded to bf16 (_Bf16Sites, 2^-8) must miss the mean's limit
+    on its own state."""
+    r = posterior_readings(gp, Xq, 0.0)
+    mu_s, _ = posterior_f64(gp, Xq, rel=TF32_U)
+    unit = float((mu_s[:, 0] - r["mu64"]).abs().max())
+    move = posterior_move(r)
+    tol = dict(mu=FAST_SLACK * unit, var=BO_SLACK * move["var"])
+    errs = dict(mu=check_close("fast mode: mu vs the f64 posterior",
+                               r["mu"], r["mu64"], tol["mu"],
+                               f"{FAST_SLACK} x its move under 2^-11 "
+                               f"({tol['mu']:.3e})"),
+                var=check_close("fast mode: var vs the f64 posterior",
+                                r["var"], r["var64"], tol["var"],
+                                f"{BO_SLACK} x its move under 2^-24 + "
+                                f"{CANCEL_SLACK} x the cancellation "
+                                f"({tol['var']:.3e})"))
+    errs.update(unit_mu=unit, sens_var=r["sens_var"],
+                cancel_var=r["cancel_var"], mu_units=errs["mu"] / unit,
+                var_units=errs["var"] / move["var"])
+    msg = (f"  fast mode, in units of the mean's move under 2^-11 (limit "
+           f"{FAST_SLACK}): mu {errs['mu_units']:.3g}; var "
+           f"{errs['var_units']:.3g} units of exact mode's (limit "
+           f"{BO_SLACK})")
+    if control is not None:
+        rc = posterior_readings(control, Xq, 0.0)
+        mc, _ = posterior_f64(control, Xq, rel=TF32_U)
+        unit_c = float((mc[:, 0] - rc["mu64"]).abs().max())
+        ctl = float((rc["mu"].double() - rc["mu64"]).abs().max())
+        errs.update(control_mu=ctl, control_mu_units=ctl / unit_c)
+        msg += (f"; the bf16 control's mu {errs['control_mu_units']:.3g} "
+                f"(must exceed {FAST_SLACK})")
+        if not ctl > FAST_SLACK * unit_c:
+            raise AssertionError("fast path: the bf16 control passes the "
+                                 "fast mode's posterior limit")
+    log(msg)
+    return errs
+
+
+def posterior_gap(gp, Xq) -> dict:
+    """The uncached posterior's largest gaps to the f64 posterior at Xq
+    (printed, not held)."""
+    from limbo_tpu_torch.models import gp as gp_mod
+
+    with torch.no_grad():
+        mu, var = gp_mod.query(gp, Xq)
+    mu64, var64 = posterior_f64(gp, Xq)
+    return dict(mu=float((mu.double() - mu64).abs().max()),
+                var=float((var.double() - var64).abs().max()))
+
+
+def fast_bench(dev, gen) -> tuple:
+    """(b) scripts/torch_large_n_bench.py at its default sizes in the mode
+    in force: each n's record printed, finite, its launches (two fits, two
+    builds, ITERS iterations) and its final state's posterior
+    (check_posterior_fast; at the first n with the control, the same run
+    with the fast sites in bf16)."""
+    bench = load_script("scripts/torch_large_n_bench.py")
+    recs, counts, errs = [], {}, {}
+    for k, n in enumerate(bench["DEFAULT_NS"]):
+        rec, gp, cache = bench["run"](n)
+        del cache
+        rec["card"] = card_line()
+        print(json.dumps({"torch_large_n_bench": rec}), flush=True)
+        if not rec["finite"]:
+            raise AssertionError(f"fast path (b): n = {n} is not finite")
+        it, cap = bench["ITERS"], rec["capacity"]
+        per = (STEPS + 2) * it
+        panels = 2 * cap // 128 if cap >= 12288 else 0
+        check_counts(f"fast path (b) n = {n}", rec["launches"], {
+            "gram_train": (2, 2), "tri_inv_panel": (2, 2),
+            "panel_factor": (panels, panels), "gram": (per, per),
+            "mirror_mm": (per, per), "trimv": (2 * it, 2 * it)})
+        counts[f"fast_bench_{n}"] = rec["launches"]
+        control = None
+        if k == 0:
+            with _Bf16Sites(), uncounted():
+                control = bench["run"](n)[1]
+        with uncounted():
+            errs[n] = check_posterior_fast(gp, torch.rand(
+                (RESTARTS, DIM), generator=gen, device=dev), control)
+        recs.append(rec)
+        del gp, control
+        torch.cuda.empty_cache()
+    return recs, errs, counts
+
+
+def _near(what: str, got, want, tol) -> None:
+    if not float(np.max(np.abs(np.asarray(got, dtype=np.float64)
+                              - np.asarray(want)))) <= tol:
+        raise AssertionError(f"fast path (c): {what}: {got}, expected "
+                             f"{want} within {tol}")
+
+
+def fast_examples(dev) -> tuple:
+    """(c) every ported example and tutorial once at its defaults (the
+    multi-objective ones' problems run in mo_path), each checked for
+    finite results and the output its docstring documents.  Stats go
+    under build/chip_smoke_examples."""
+    from limbo_tpu_torch.ops import _cuda
+
+    res_dir = str(ROOT / "build" / "chip_smoke_examples")
+    out = {}
+    _cuda.reset_launches()
+
+    def run(rel, **kw):
+        t0 = time.perf_counter()
+        r = load_script(rel)["main"](**kw)
+        torch.cuda.synchronize()
+        out[Path(rel).stem] = time.perf_counter() - t0
+        log(f"fast path (c): {rel} {out[Path(rel).stem]:.3f} s")
+        return r
+
+    def finite_state(name, state, n):
+        if not (state.gp.n == n and np.isfinite(state.best_value)
+                and state.best_value == float(
+                    state.gp.y[:n, 0].max())):
+            raise AssertionError(f"fast path (c): {name}: n {state.gp.n} "
+                                 f"(expected {n}), best {state.best_value}")
+        check_finite(f"fast path (c) {name}", **model_fields(state.gp))
+
+    s = run("examples/torch/large_n.py")
+    finite_state("large_n", s, 10_000 + 20)
+    if s.cache.Kinv is not None or s.cache.Kinv_q.dtype != torch.bfloat16:
+        raise AssertionError("fast path (c): large_n's cache is not lite")
+    s = run("examples/torch/large_n_sharded.py")
+    finite_state("large_n_sharded", s, 20 + 10)
+    s = run("examples/torch/mono_dim.py", res_base_dir=res_dir)
+    finite_state("mono_dim", s, 10 + 40)
+    s = run("examples/torch/obs_multi.py")
+    _near("obs_multi's best sample", s.best_sample, [0.25, 0.75], 0.1)
+    s = run("examples/torch/obs_multi_auto_mean.py")
+    check_finite("fast path (c) obs_multi_auto_mean",
+                 **model_fields(s.gp))
+    bo = run("examples/torch/experimental/cbo.py")
+    if not (bo.best_sample[0] < 0.6
+            and np.isfinite(bo.best_observation).all()):
+        raise AssertionError(f"fast path (c): cbo's best is not feasible: "
+                             f"{bo.best_sample}, {bo.best_observation}")
+    im = run("examples/torch/experimental/imgpo.py")
+    if not np.isfinite(im.best_value):
+        raise AssertionError("fast path (c): imgpo's best is not finite")
+    s = run("tutorials/torch/basic_example.py")
+    finite_state("basic_example", s, 10 + 30)
+    s = run("tutorials/torch/advanced_example.py")
+    if not (s.total_iterations == 50 and np.isfinite(s.best_value)):
+        raise AssertionError("fast path (c): advanced_example's resume")
+    r = run("tutorials/torch/gp.py")
+    if not (r["ard_err"] < 0.1 and r["basic_err"] < 0.1):
+        raise AssertionError(f"fast path (c): the gp tutorial's errors {r}")
+    r = run("tutorials/torch/opt.py")
+    for name, (x, v) in r.items():
+        _near(f"opt tutorial, {name}", x, [0.6, 0.6], 0.05)
+    s, d = run("tutorials/torch/statistics.py", res_base_dir=res_dir)
+    rows = Path(d, "worst_observations.dat").read_text().splitlines()
+    if len(rows) != 15:
+        raise AssertionError(f"fast path (c): statistics wrote {len(rows)} "
+                             f"rows")
+    return out, dict(_cuda.LAUNCHES)
+
+
+def fast_path(dev, seed: int):
+    """Slice 14, the fast-matmul mode (utils/precision.py).  (a) bench.py's
+    workload (MainPath) fitted in exact mode and in fast mode from one
+    seed: the exact sites' readings bit-equal, a fast site moved (the
+    switch took effect); in fast mode FAST_ITERS eager iterations against
+    as many replays of BOStep's graphs captured under the mode, past one
+    flush, bit for bit; the eager runs' posterior gaps to f64 in both
+    modes (printed); then the captured and uncaptured rates of both modes
+    in alternated groups (printed, not held).  (b) the large-n bench at
+    its default sizes in fast mode, each final posterior held by
+    check_posterior_fast (its bf16 control at the first size).  (c) the
+    ported examples and tutorials, in fast mode.  The process's mode is restored at the end,
+    also on a failure.  Returns its numbers and its launches."""
+    from limbo_tpu_torch.bo.graph import BOStep
+    from limbo_tpu_torch.ops import _cuda
+    from limbo_tpu_torch.utils import precision
+
+    out, counts = {}, {}
+    prev = precision.fast_mode()
+    try:
+        t_a = time.perf_counter()
+        precision._set_fast(False)
+        _cuda.reset_launches()
+        path_e, gp_e, cache_e, ex_e, fs_e = fast_state(dev, seed)
+        gp_ex, cache_ex = clone_state(gp_e, cache_e)
+        gen_x = torch.Generator(device=dev).manual_seed(seed + 2)
+        for _ in range(FAST_ITERS):
+            gp_ex, cache_ex = path_e.append(
+                gp_ex, cache_ex, path_e.acquire(gp_ex, cache_ex, gen_x))
+        gen_e = torch.Generator(device=dev).manual_seed(seed + 1)
+        step_e = BOStep(gp_e, cache_e,
+                        lambda model, it: path_e.propose(model, gen_e),
+                        path_e.objective, gen_e, fast_update="deferred")
+        step_e.step()                   # warm-up and capture, exact mode
+        del gp_e, cache_e
+        counts["fast_a_exact"] = dict(_cuda.LAUNCHES)
+
+        precision._set_fast(True)
+        _cuda.reset_launches()
+        path_f, gp_f, cache_f, ex_f, fs_f = fast_state(dev, seed)
+        differ = [k for k in ex_e if not same_bits(ex_e[k], ex_f[k])]
+        if differ:
+            raise AssertionError(f"fast path: exact sites differ across "
+                                 f"the modes: {differ}")
+        moved = {k: float((fs_f[k].double() - fs_e[k].double()).abs().max())
+                 for k in fs_e}
+        log(f"fast path: the exact sites, bit-equal across the modes: "
+            f"{', '.join(ex_e)}: ok; the fast sites' largest moves: "
+            f"{moved}")
+        if not any(v > 0 for v in moved.values()):
+            raise AssertionError("fast path: no fast site moved: the mode "
+                                 "did not take effect")
+        out["moved"] = moved
+        del ex_e, ex_f, fs_e, fs_f
+
+        gp_x, cache_x = clone_state(gp_f, cache_f)
+        gens = [torch.Generator(device=dev).manual_seed(seed + 2)
+                for _ in range(2)]
+        xs_c = torch.full((FAST_ITERS + 2 * FAST_RATE_GROUPS
+                           * FAST_RATE_ITERS, DIM), torch.nan, device=dev)
+        step_f = BOStep(gp_f, cache_f,
+                        lambda model, it: path_f.propose(model, gens[1]),
+                        path_f.objective, gens[1], fast_update="deferred",
+                        on_sample=lambda it, x, y: xs_c.index_copy_(
+                            0, it.reshape(1), x[None, :]))
+        del gp_f, cache_f
+        counts["fast_a_fast"] = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        xs_e = []
+        for _ in range(FAST_ITERS):
+            x = path_f.acquire(gp_x, cache_x, gens[0])
+            gp_x, cache_x = path_f.append(gp_x, cache_x, x)
+            xs_e.append(x)
+        launches_e = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        for _ in range(FAST_ITERS):
+            step_f.step()
+        launches_c = dict(_cuda.LAUNCHES)
+        gp_c, cache_c = step_f.gp, step_f.cache
+        pairs = dict(proposals=(torch.stack(xs_e), xs_c[:FAST_ITERS]),
+                     x=(gp_x.x, gp_c.x), y=(gp_x.y, gp_c.y),
+                     L=(gp_x.L, gp_c.L), alpha=(gp_x.alpha, gp_c.alpha),
+                     Linv=(cache_x.Linv, cache_c.Linv),
+                     Kinv=(cache_x.Kinv, cache_c.Kinv),
+                     Kinv_q=(cache_x.Kinv_q, cache_c.Kinv_q),
+                     P=(cache_x.P, cache_c.P), ay=(cache_x.ay, cache_c.ay),
+                     u_ones=(cache_x.u_ones, cache_c.u_ones))
+        differ = [k for k, (a, b) in pairs.items() if not same_bits(a, b)]
+        if differ or cache_c.base_n == N_POINTS:
+            raise AssertionError(f"fast path: captured and eager runs in "
+                                 f"fast mode differ in {differ} (base_n "
+                                 f"{cache_c.base_n})")
+        want = {"gram": ((STEPS + 2) * FAST_ITERS,) * 2,
+                "mirror_mm": ((STEPS + 2) * FAST_ITERS,) * 2,
+                "trimv": (2 * FAST_ITERS,) * 2}
+        check_counts("fast path (eager)", launches_e, want)
+        check_counts("fast path (captured)", launches_c, want)
+        log(f"fast path: {FAST_ITERS} replays of the graphs captured in "
+            f"fast mode == its eager run, bit for bit (past the flush at "
+            f"{cache_c.base_n}): {', '.join(pairs)}: ok")
+        counts["fast_a_eager"], counts["fast_a_captured"] = \
+            launches_e, launches_c
+        del pairs, xs_e
+
+        # bench.py's state is ill-conditioned (l = 1, noise 0.01 at
+        # n = 10k): the exact mode's own mean misses check_posterior_exact's
+        # limit there (the main path holds check_posterior instead), so
+        # the posterior's gaps to f64 are printed for both modes, not held;
+        # (b) holds the fast mode's on the large-n bench's states
+        Xq = torch.rand((RESTARTS, DIM), generator=gens[0], device=dev)
+        with uncounted():
+            out["gap_fast"] = posterior_gap(gp_x, Xq)
+            precision._set_fast(False)
+            out["gap_exact"] = posterior_gap(gp_ex, Xq)
+            precision._set_fast(True)
+        log(f"fast path: bench.py's posterior after {FAST_ITERS} eager "
+            f"iterations, its largest gaps to f64 (not held): exact mode "
+            f"{out['gap_exact']}, fast mode {out['gap_fast']}")
+        del gp_x, cache_x, gp_ex, cache_ex
+        torch.cuda.empty_cache()
+
+        # the rates, both modes, captured and eager, in alternated groups
+        _cuda.reset_launches()
+        best = {}
+        steps = (("exact", step_e, False), ("fast", step_f, True))
+        for g in range(FAST_RATE_GROUPS):
+            for name, step, fast in (steps if g % 2 == 0 else steps[::-1]):
+                precision._set_fast(fast)
+                for kind in ("captured", "uncaptured"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(FAST_RATE_ITERS):
+                        step.step(eager=kind == "uncaptured")
+                    torch.cuda.synchronize()
+                    dt = (time.perf_counter() - t0) / FAST_RATE_ITERS
+                    key = f"{name}_{kind}"
+                    best[key] = min(best.get(key, math.inf), dt)
+        out["iters_per_s"] = {k: 1.0 / v for k, v in best.items()}
+        counts["fast_a_rates"] = dict(_cuda.LAUNCHES)
+        for name, step, _ in steps:
+            check_finite(f"fast path ({name} rates)", L=step.gp.L,
+                         alpha=step.gp.alpha)
+        log(f"fast path: best of {FAST_RATE_GROUPS} alternated groups of "
+            f"{FAST_RATE_ITERS}, iters/s: {out['iters_per_s']} "
+            f"({card_line()})")
+        del steps, step_e, step_f
+        torch.cuda.empty_cache()
+        out["a_s"] = time.perf_counter() - t_a
+
+        precision._set_fast(True)
+        t0 = time.perf_counter()
+        out["bench"], out["bench_posterior"], bench_counts = fast_bench(
+            dev, torch.Generator(device=dev).manual_seed(seed + 3))
+        out["b_s"] = time.perf_counter() - t0
+        counts.update(bench_counts)
+        t0 = time.perf_counter()
+        out["examples_s"], counts["fast_examples"] = fast_examples(dev)
+        out["c_s"] = time.perf_counter() - t0
+    finally:
+        precision._set_fast(prev)
+    log(f"fast path: (a) {out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
+        f"{out['c_s']:.1f} s")
+    return out, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4575,7 +5015,12 @@ def main() -> int:
         return 1
     if args.iters < 40:
         raise SystemExit("--iters must be at least 40 (one deferred flush)")
-    import limbo_tpu_torch  # noqa: F401  (precision policy: TF32 off)
+    import limbo_tpu_torch  # noqa: F401
+    from limbo_tpu_torch.utils import precision
+
+    # every path but the fast path runs in exact mode, whatever the
+    # environment's LIMBO_TPU_FAST_MATMUL says (utils/precision.py)
+    precision._set_fast(False)
     from limbo_tpu_torch.ops import _cuda
 
     card = card_line()
@@ -4605,11 +5050,12 @@ def main() -> int:
     persist, persist_counts = persist_path(dev, gen)
     torch.cuda.empty_cache()
     dist, dist_counts = dist_path(dev, gen, args.seed)
+    fast, fast_counts = fast_path(dev, args.seed)
     by_path = {"n10k": res["launches"], "hp16k": hp["launches"], **bo_counts,
                "graph_eager_n10k": graph_e, "graph_n10k": graph_c,
                **jit_counts, **suite_counts, **lite_counts, **modes_counts,
                **models_counts, **mo_counts, **cbo_counts,
-               **persist_counts, **dist_counts}
+               **persist_counts, **dist_counts, **fast_counts}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     extra = ("rel_bias", "at_q64", "at_q1024", "form_ms", "gb_per_s",
              "bytes_share", "launch_floor_ms", "turns", "blocked")
@@ -4659,6 +5105,7 @@ def main() -> int:
     print(json.dumps({"cbo_path": cbo | {"card": card}}))
     print(json.dumps({"persist_path": persist | {"card": card}}))
     print(json.dumps({"dist_path": dist | {"card": card}}))
+    print(json.dumps({"fast_path": fast | {"card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

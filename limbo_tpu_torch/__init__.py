@@ -13,16 +13,13 @@ without a card it raises unless the caller passes ``device="cpu"``.
 
 __version__ = "0.1.0"
 
-import torch as _torch
-
 # GP numerics need true-f32 matmuls (counterpart of limbo_tpu/__init__.py's
 # "highest" default precision): TF32's 10-bit mantissa swamps the
 # pairwise-distance cancellation |a|^2 + |b|^2 - 2ab for closely spaced
-# points and turns dense kernel matrices indefinite.  Both switches are
-# set explicitly rather than trusting the library defaults (cuDNN's
-# defaults to TF32 on).
-_torch.backends.cuda.matmul.allow_tf32 = False
-_torch.backends.cudnn.allow_tf32 = False
-_torch.set_float32_matmul_precision("highest")
-
+# points and turns dense kernel matrices indefinite.  utils/precision.py
+# sets every backend to exact f32 at import; LIMBO_TPU_FAST_MATMUL (any
+# non-empty value, as the reference reads it) lets the products the
+# reference leaves at its default precision run in TF32, and keeps exact
+# every product it pins at HIGHEST (the table in that module).
+from limbo_tpu_torch.utils import precision as _precision  # noqa: E402,F401
 from limbo_tpu_torch import acqui, bo, kernels, means, models, ops, opt, utils  # noqa: E402,F401

@@ -19,6 +19,7 @@ import torch
 
 from limbo_tpu_torch.acqui.acqui import EI, FirstElem
 from limbo_tpu_torch.opt.base import take
+from limbo_tpu_torch.utils.precision import solve_triangular
 
 
 def joint_posterior(gp, Xb: torch.Tensor
@@ -33,7 +34,7 @@ def joint_posterior(gp, Xb: torch.Tensor
     X = Xb.reshape(-1, d)                                     # (B q, d)
     ks = gp.kernel.gram(X, gp.x) * gp.mask[None, :]           # (B q, N)
     mu = (ks @ gp.alpha + gp.mean(X))[:, 0].reshape(*batch, q)
-    V = torch.linalg.solve_triangular(gp.L, ks.T, upper=False)  # (N, B q)
+    V = solve_triangular(gp.L, ks.T, upper=False)  # (N, B q)
     B = X.shape[0] // q
     V = V.reshape(-1, B, q)
     K = gp.kernel.gram(X, X).reshape(B, q, B, q)

@@ -55,6 +55,7 @@ from limbo_tpu_torch.ops.chol import cholesky, tri_inv, use_blocked_tri
 from limbo_tpu_torch.ops.mirror import mirror_mm
 from limbo_tpu_torch.ops.trimv import trimv
 from limbo_tpu_torch.utils.device import resolve_device
+from limbo_tpu_torch.utils.precision import exact_products, solve_triangular
 
 DEFAULT_CAPACITY = 256
 
@@ -204,12 +205,12 @@ def recompute(gp: GP, update_obs_mean: bool = True) -> GP:
 
 
 def _cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    z = torch.linalg.solve_triangular(L, B, upper=False)
-    return torch.linalg.solve_triangular(L.T, z, upper=True)
+    z = solve_triangular(L, B, upper=False)
+    return solve_triangular(L.T, z, upper=True)
 
 
 def _solve_vec(L: torch.Tensor, b: torch.Tensor, upper: bool = False):
-    return torch.linalg.solve_triangular(L, b[:, None], upper=upper)[:, 0]
+    return solve_triangular(L, b[:, None], upper=upper)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +311,7 @@ def query(gp, Xq) -> Tuple[torch.Tensor, torch.Tensor]:
                           ).to(gp.x.dtype)
     ks = gp.kernel.gram(Xq, gp.x) * gp.mask[None, :]                 # (q, N)
     mu = ks @ gp.alpha + gp.mean(Xq)
-    z = torch.linalg.solve_triangular(gp.L, ks.T, upper=False)       # (N, q)
+    z = solve_triangular(gp.L, ks.T, upper=False)                    # (N, q)
     var = gp.kernel.k_diag(Xq) - torch.sum(z * z, dim=0)
     return mu, _clamp0(var)
 
@@ -340,6 +341,7 @@ def _panel_width(N: int, cap: int = 1024) -> int:
     return next(d for d in range(min(cap, N), 0, -1) if N % d == 0)
 
 
+@exact_products
 def _mirror_from_linv(Linv: torch.Tensor, qdtype, out=None,
                       cap: int = 1024) -> torch.Tensor:
     """(Linv^T Linv) in qdtype, one column panel at a time
@@ -358,6 +360,13 @@ def _mirror_from_linv(Linv: torch.Tensor, qdtype, out=None,
         below = Linv[c0:]
         out[c0:c0 + w].copy_((below.T @ below[:, c0:c0 + w]).T)
     return out
+
+
+@exact_products
+def _kinv_from_linv(Linv: torch.Tensor) -> torch.Tensor:
+    """K^{-1} = Linv^T Linv in exact f32 (limbo_tpu/models/gp.py:462-463,
+    the blocked route's HIGHEST product)."""
+    return Linv.T @ Linv
 
 
 def _linv_solve(Linv: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -406,7 +415,9 @@ class QueryCache:
     def build(cls, gp: GP, block: int = 1024, with_K: bool = False,
               with_Linv: bool = False, qdtype=None, defer_m: int = 0,
               lite: bool = False) -> "QueryCache":
-        """Linv = L^{-1}, then Kinv = Linv^T Linv (one exact-f32 product).
+        """Linv = L^{-1}, then Kinv = Linv^T Linv (one product: exact f32
+        on the blocked route, at the precision mode's on the solve route, as
+        the reference's).
 
         Linv comes from ``tri_inv`` (ops/chol.py): the blocked inverse with
         its panel kernel on the card from TRI_INV_MIN_N, elsewhere one
@@ -435,7 +446,10 @@ class QueryCache:
             a = _linv_solve(Linv, rhs)
             return cls(Linv=Linv, Kinv_q=_mirror_from_linv(Linv, qdtype),
                        ay=a[:, :-1], u_ones=a[:, -1], **defer)
-        Kinv = Linv.T @ Linv
+        # exact on the blocked route, at the mode on the solve route, as
+        # the reference's (limbo_tpu/models/gp.py:462 and :479)
+        Kinv = (_kinv_from_linv(Linv) if use_blocked_tri(N, dev)
+                else Linv.T @ Linv)
         if defer_m > 0:
             a = Kinv @ rhs
             defer.update(ay=a[:, :-1], u_ones=a[:, -1])

@@ -26,6 +26,7 @@ from limbo_tpu_torch.means.means import prepare_mean
 from limbo_tpu_torch.models.gp import _clamp0, _round_capacity
 from limbo_tpu_torch.opt.gradient import Rprop
 from limbo_tpu_torch.utils.device import resolve_device
+from limbo_tpu_torch.utils.precision import solve_triangular
 
 DEFAULT_RATIO = 0.1   # limbo defaults::model_spgp pseudo-input ratio
 _MJITTER = 1e-6
@@ -84,7 +85,7 @@ def _cholesky_nan(A: torch.Tensor) -> torch.Tensor:
 
 
 def _tri_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.solve_triangular(L, B, upper=False)
+    return solve_triangular(L, B, upper=False)
 
 
 def _fitc_terms(kernel, xb, X, Yc, mask, noise_var):

@@ -16,12 +16,13 @@ inverse (port of limbo_tpu/ops/chol.py).
   deferred update of the panel, the panel-factor kernel
   (``csrc/panel_factor.cu``) for the (B, B) diagonal block and its inverse,
   and one GEMM for the rest of the panel.  The GEMMs are ``torch.matmul``
-  in exact f32, as the reference leaves them to XLA (chol.py:319-332).
+  in exact f32 in both precision modes, as the reference pins them at
+  HIGHEST (chol.py:70, 319-332; utils/precision.py).
 * ``tri_inv_blocked`` inverts a lower-triangular matrix by block forward
   substitution.  The inverses of ALL diagonal blocks come from one launch of
   the tri-inv panel kernel (``csrc/tri_inv.cu``; they are independent), and
-  each block row is then two large products, left to ``torch.matmul`` in
-  exact f32 as the reference leaves them to XLA (chol.py:361-366).
+  each block row is then two large products, ``torch.matmul`` in exact f32
+  in both modes, as the reference's (chol.py:361-366).
 
 f64 never reaches a kernel: the default dispatch factors it with
 ``cholesky_ex`` and inverts it with the library triangular solve.
@@ -32,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from limbo_tpu_torch.ops import _cuda
+from limbo_tpu_torch.utils.precision import exact_products, solve_triangular
 
 # the blocked factorization switches on at the reference's size
 # (limbo_tpu/ops/chol.py:62), on the card, in f32
@@ -65,7 +67,7 @@ def panel_factor_plain(D: torch.Tensor):
     triangular solve."""
     L11 = _stock_cholesky(D)
     eye = torch.eye(D.shape[0], dtype=D.dtype, device=D.device)
-    L11inv = torch.linalg.solve_triangular(L11, eye, upper=False)
+    L11inv = solve_triangular(L11, eye, upper=False)
     return L11, L11inv.T
 
 
@@ -110,6 +112,7 @@ def _diag_blocks(L: torch.Tensor, block: int) -> torch.Tensor:
         .permute(2, 0, 1)
 
 
+@exact_products
 def tri_inv_panel_plain(L: torch.Tensor, block: int) -> torch.Tensor:
     """Plain version of the panel kernel, in the kernel's order, for every
     diagonal block at once: the inverses of the 32 x 32 diagonal sub-blocks
@@ -185,6 +188,7 @@ def _pad_identity(A: torch.Tensor, block: int):
     return P, n
 
 
+@exact_products
 def cholesky_blocked(A: torch.Tensor, block: int = PANEL_BLOCK
                      ) -> torch.Tensor:
     """Lower Cholesky factor by left-looking blocked elimination
@@ -211,6 +215,7 @@ def cholesky_blocked(A: torch.Tensor, block: int = PANEL_BLOCK
     return L[:n, :n]
 
 
+@exact_products
 def tri_inv_blocked(L: torch.Tensor, block: int = TRI_INV_BLOCK
                     ) -> torch.Tensor:
     """Inverse of a lower-triangular matrix by block forward substitution.
@@ -264,6 +269,7 @@ class _Cholesky(torch.autograd.Function):
         return L
 
     @staticmethod
+    @exact_products
     def backward(ctx, Lbar):
         (L,) = ctx.saved_tensors
         P = L.T @ Lbar
@@ -295,4 +301,4 @@ def tri_inv(L: torch.Tensor) -> torch.Tensor:
     if L.dtype == torch.float32 and use_blocked_tri(L.shape[0], L.device):
         return tri_inv_blocked(L)
     eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
-    return torch.linalg.solve_triangular(L, eye, upper=False)
+    return solve_triangular(L, eye, upper=False)

@@ -18,6 +18,7 @@ import math
 import torch
 
 from limbo_tpu_torch.ops import _cuda
+from limbo_tpu_torch.utils.precision import exact_products
 
 FORMS = {"se": 0, "matern32": 1, "matern52": 2}
 
@@ -39,6 +40,7 @@ def _radial(form: str, r2: torch.Tensor, inv_l) -> torch.Tensor:
     raise ValueError(form)
 
 
+@exact_products
 def gram_plain(X1, X2, sf2, inv_l, form: str = "se") -> torch.Tensor:
     """Plain version of the gram tile: r2 = max(|a|^2 + |b|^2 - 2 a.b, 0),
     then sf2 * rho(r2)."""

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from limbo_tpu_torch.ops import _cuda
+from limbo_tpu_torch.utils.precision import exact_products
 
 # the promotion interval: the depth each tensor-core partial sum covers
 # before it is added to the f32 accumulator (csrc/mirror_mm.cu PK)
@@ -62,6 +63,7 @@ def _plan(q: int, K: int, N: int, device_index: int):
                                           else 0)
 
 
+@exact_products
 def mirror_mm_plain(ks: torch.Tensor, Kq: torch.Tensor) -> torch.Tensor:
     """Plain version: round ks to Kq's dtype, then multiply the operands
     upcast to ks's dtype (the same exact products, summed in that dtype)."""

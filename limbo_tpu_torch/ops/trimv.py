@@ -15,6 +15,7 @@ import os
 import torch
 
 from limbo_tpu_torch.ops import _cuda
+from limbo_tpu_torch.utils.precision import exact_products
 
 # Below this size the dense matvec's full read is cheap and launch overhead
 # dominates (the reference's threshold, limbo_tpu/ops/trimv.py:43).
@@ -23,6 +24,7 @@ TRIMV_MIN_N = 4096
 NO_TRIMV_ENV = "LIMBO_TPU_TORCH_NO_TRIMV"
 
 
+@exact_products
 def trimv_plain(L: torch.Tensor, v: torch.Tensor,
                 transpose: bool = False) -> torch.Tensor:
     """Plain version of the kernel: the product with L's lower triangle."""
@@ -52,6 +54,7 @@ def _trimv_pallas(L: torch.Tensor, v: torch.Tensor,
     return y
 
 
+@exact_products
 def trimv(L: torch.Tensor, v: torch.Tensor,
           transpose: bool = False) -> torch.Tensor:
     """y = L @ v (or L^T @ v) for lower-triangular L, size-dispatched.

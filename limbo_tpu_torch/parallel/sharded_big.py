@@ -48,6 +48,7 @@ from limbo_tpu_torch.parallel.sharded_chol import (DEFAULT_BLOCK,
                                                    _dist_cho_solve,
                                                    _forward_solve,
                                                    _owner_extract)
+from limbo_tpu_torch.utils.precision import solve_triangular
 
 
 @dataclass
@@ -219,7 +220,7 @@ def _big_add(big: BigGP, x_new: torch.Tensor, y_new: torch.Tensor,
     kb = i // block
     j0 = kb * block
     blk = _owner_extract(big.L[:, j0:], row0, rows_loc, j0, block, block, ax)
-    big.L11invs[kb] = torch.linalg.solve_triangular(
+    big.L11invs[kb] = solve_triangular(
         blk, torch.eye(block, dtype=dtype, device=blk.device), upper=False)
 
     # --- O(N) bordered recurrences + deferred panel bookkeeping ----------

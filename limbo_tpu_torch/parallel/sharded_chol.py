@@ -52,6 +52,7 @@ import torch
 from limbo_tpu_torch.means.means import prepare_mean
 from limbo_tpu_torch.ops.chol import PANEL_BLOCK, panel_factor
 from limbo_tpu_torch.parallel.mesh import Axis, mesh_axis, psum
+from limbo_tpu_torch.utils.precision import exact
 
 # The reference's B = 256 was a TPU choice: one f32 block is 256 KiB there,
 # above the 227 KB of shared memory a Hopper block may use.  The port's
@@ -143,21 +144,24 @@ def _factor_loop(A_loc: torch.Tensor, c: torch.Tensor, row0: int,
     kw = dict(dtype=A_loc.dtype, device=A_loc.device)
     L_loc = torch.zeros((rows_loc, N), **kw)
     L11invs = torch.empty((nb, block, block), **kw)
-    for k in range(nb):
-        j0, j1 = k * block, (k + 1) * block
-        lo = _first_at(j0, row0, rows_loc)
-        if k > 0:
-            Lrow_k = _owner_extract(L_loc, row0, rows_loc, j0, block, j0,
-                                    ax)                          # (B, kB)
-            panel = A_loc[lo:, j0:j1] - L_loc[lo:, :j0] @ Lrow_k.T
-        else:
-            panel = A_loc[lo:, j0:j1]
-        D = _owner_extract(panel, row0 + lo, rows_loc - lo, j0, block,
-                           block, ax)
-        L11, L11invs[k] = panel_factor(D)
-        L_loc[lo:, j0:j1] = panel @ L11invs[k].T
-        if row0 <= j0 < row0 + rows_loc:
-            L_loc[lo:lo + block, j0:j1] = L11         # the exact triangle
+    # the factor's GEMMs are exact in both modes (the reference pins them
+    # at HIGHEST, sharded_chol.py:153,159); the solve below is not
+    with exact():
+        for k in range(nb):
+            j0, j1 = k * block, (k + 1) * block
+            lo = _first_at(j0, row0, rows_loc)
+            if k > 0:
+                Lrow_k = _owner_extract(L_loc, row0, rows_loc, j0, block, j0,
+                                        ax)                          # (B, kB)
+                panel = A_loc[lo:, j0:j1] - L_loc[lo:, :j0] @ Lrow_k.T
+            else:
+                panel = A_loc[lo:, j0:j1]
+            D = _owner_extract(panel, row0 + lo, rows_loc - lo, j0, block,
+                               block, ax)
+            L11, L11invs[k] = panel_factor(D)
+            L_loc[lo:, j0:j1] = panel @ L11invs[k].T
+            if row0 <= j0 < row0 + rows_loc:
+                L_loc[lo:lo + block, j0:j1] = L11         # the exact triangle
     a = _dist_cho_solve(L_loc, L11invs, c, row0, rows_loc, N, block, ax)
     diag = torch.diagonal(L_loc[:, row0:row0 + rows_loc])
     logdet = 2.0 * psum(torch.sum(torch.log(diag)).reshape(1), ax)[0]

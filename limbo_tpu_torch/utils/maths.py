@@ -2,15 +2,40 @@
 limbo_tpu/utils/maths.py).
 
 Pairwise squared distances use the ``|a|^2 + |b|^2 - 2 a.b`` expansion so
-the dominant cost is one matrix product.  That product runs in exact f32:
-the package turns TF32 off at import (limbo_tpu_torch/__init__.py), and a
-TF32 product's ~1e-3 relative error would swamp the cancellation for
-nearby points and make dense kernel matrices indefinite.
+the dominant cost is one matrix product.  That product, and its backward,
+run in exact f32 in both precision modes (utils/precision.py; the
+reference pins it at HIGHEST, limbo_tpu/utils/maths.py:29-34): a TF32
+product's ~1e-3 relative error would swamp the cancellation for nearby
+points and make dense kernel matrices indefinite.
 """
 
 from __future__ import annotations
 
 import torch
+
+from limbo_tpu_torch.utils import precision
+
+
+class _ExactCross(torch.autograd.Function):
+    """a @ b^T with its forward and backward products in exact f32 (the
+    same products autograd's mm backward issues, so the same bits)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with precision.exact():
+            return a @ b.T
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with precision.exact():
+            if ctx.needs_input_grad[0]:
+                ga = g.mm(b)
+            if ctx.needs_input_grad[1]:
+                gb = a.t().mm(g).t()
+        return ga, gb
 
 
 def sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -18,7 +43,7 @@ def sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (the expansion can go slightly negative in finite precision)."""
     a2 = torch.sum(a * a, dim=-1)[:, None]
     b2 = torch.sum(b * b, dim=-1)[None, :]
-    ab = a @ b.T
+    ab = _ExactCross.apply(a, b) if precision.fast_mode() else a @ b.T
     return torch.clamp(a2 + b2 - 2.0 * ab, min=0.0)
 
 

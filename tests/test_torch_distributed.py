@@ -39,6 +39,11 @@ F64 = jnp.float64
 WORLD = 2
 REL = 1e-9
 _jadd = jax.jit(jgp.add_sample_cached, static_argnames=("fast_update",))
+# the reference's fit and cache build as jitted programs: one compile each
+# in place of one per operation (the same functions)
+_jfit = jax.jit(jgp.fit, static_argnames=("capacity",))
+_jbuild = jax.jit(jgp.QueryCache.build,
+                  static_argnames=("with_Linv", "qdtype", "defer_m"))
 
 
 def _close(got, want, rel=REL):
@@ -114,7 +119,7 @@ def test_sharded_fit_matches_jax_mesh(ranks):
         _close(r["a_alpha"], ref.alpha)
         _close(r["a_logdet"], ref.logdet)
         _close(r["a_lml"], ref.lml)
-    dense = jgp.fit(kern, mean, _j(X), _j(Y), capacity=w.N_CAP)
+    dense = _jfit(kern, mean, _j(X), _j(Y), capacity=w.N_CAP)
     mu, var = jgp.query(dense, _j(w.data(1, 16)[0]))
     for r in ranks:
         _close(r["a_mu"], mu)
@@ -130,8 +135,8 @@ def test_sharded_query_cached_and_gradient(ranks):
     psum of q numbers forward and one all_gather of q N backward."""
     Xb, Yb = w.data(2, 48)
     Xq = _j(w.data(1, 16)[0])
-    gp = jgp.fit(*_jkernel_mean(), _j(Xb), _j(Yb), capacity=w.N_CAP)
-    cache = jgp.QueryCache.build(gp, with_Linv=True, defer_m=8)
+    gp = _jfit(*_jkernel_mean(), _j(Xb), _j(Yb), capacity=w.N_CAP)
+    cache = _jbuild(gp, with_Linv=True, defer_m=8)
     mu, var = jgp.query_cached(gp, cache, Xq)
     g = jax.grad(lambda x: jgp.query_cached(gp, cache, x[None, :])[1][0])(
         Xq[0])
@@ -159,16 +164,16 @@ def test_sharded_bo_iter_tracks_jax_deferred(ranks):
     r0 = ranks[0]
     X = np.concatenate([Xb, r0["bi_x"]])
     Y = np.concatenate([Yb, r0["bi_y"]])
-    L64 = np.asarray(jgp.fit(*_jkernel_mean(), _j(X), _j(Y),
+    L64 = np.asarray(_jfit(*_jkernel_mean(), _j(X), _j(Y),
                              capacity=w.N_CAP).L)[:len(X), :len(X)]
     ev = np.linalg.eigvalsh(L64 @ L64.T)
     rel = ev[-1] / ev[0] * 2.0 ** -23
     f32 = jnp.float32
     kern = SquaredExpARD.create(dim=w.D, dtype=f32)
     mean = DataMean.create(dim_out=1, dtype=f32)
-    gp = jgp.fit(kern, mean, jnp.asarray(Xb, f32), jnp.asarray(Yb, f32),
+    gp = _jfit(kern, mean, jnp.asarray(Xb, f32), jnp.asarray(Yb, f32),
                  capacity=w.N_CAP)
-    cache = jgp.QueryCache.build(gp, with_Linv=True, qdtype=jnp.bfloat16,
+    cache = _jbuild(gp, with_Linv=True, qdtype=jnp.bfloat16,
                                  defer_m=4)
     for x, y in zip(r0["bi_x"], r0["bi_y"]):
         gp, cache = _jadd(gp, cache, jnp.asarray(x, f32),
@@ -194,8 +199,8 @@ def test_big_cache_and_append_with_flush(ranks):
     psum payloads against the closed forms (D = 2: 2 N^2 + 2 N (p + 1);
     2 N + B^2, plus N (p + 1) at the flush)."""
     Xc, Yc = w.data(3, 40)
-    gp = jgp.fit(*_jkernel_mean(), _j(Xc), _j(Yc), capacity=w.N_CAP)
-    cache = jgp.QueryCache.build(gp, with_Linv=True, defer_m=4)
+    gp = _jfit(*_jkernel_mean(), _j(Xc), _j(Yc), capacity=w.N_CAP)
+    cache = _jbuild(gp, with_Linv=True, defer_m=4)
     _close(_cols(ranks, "c_Kq0"), cache.Kinv)
     for r in ranks:
         _close(r["c_ay0"], cache.ay)
@@ -227,10 +232,10 @@ def test_distributed_bo_tracks_single_device(ranks):
     tests/test_distributed_bo.py:74, holds whatever the values)."""
     r0 = ranks[0]
     assert r0["d_iter"] == 6 and r0["d_n"] == 26 and r0["d_cap"] == 32
-    gp = jgp.fit(MaternFiveHalves.create(dtype=F64),
+    gp = _jfit(MaternFiveHalves.create(dtype=F64),
                  DataMean.create(dim_out=1, dtype=F64), _j(r0["d_X0"]),
                  _j(r0["d_Y0"][:, None]), capacity=int(r0["d_cap"]))
-    cache = jgp.QueryCache.build(gp, with_Linv=True, defer_m=4)
+    cache = _jbuild(gp, with_Linv=True, defer_m=4)
     for x, y in zip(r0["d_xs"], r0["d_ys"]):
         gp, cache = _jadd(gp, cache, _j(x), _j([y]), fast_update="deferred")
     assert int(gp.n) == 26

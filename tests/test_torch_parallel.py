@@ -12,6 +12,7 @@ CG solve to 1e-7 of alpha's largest entry (its relative residual limit is
 payloads exactly, to the closed forms of tests/test_comm_audit.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,9 @@ torch.set_num_threads(1)
 
 F64 = torch.float64
 REL = 1e-9
+# the reference's fit as one jitted program: one compile in place of one
+# per operation (the same function)
+_jfit = jax.jit(jgp.fit, static_argnames=("capacity",))
 
 
 @pytest.fixture
@@ -90,7 +94,7 @@ def test_sharded_fit_query_match_dense(group):
     Xp, Yp = _pad(X, Y, 64)
     sgp = sharded_fit(mesh, *_port(), Xp, Yp, n=50, block=16)
     kern, mean = _jax()
-    ref = jgp.fit(kern, mean, jnp.asarray(X), jnp.asarray(Y), capacity=64)
+    ref = _jfit(kern, mean, jnp.asarray(X), jnp.asarray(Y), capacity=64)
     _close(sgp.L, ref.L)
     _close(sgp.alpha, ref.alpha)
     _close(sgp.lml, jgp.log_marginal_likelihood(kern, mean, ref.x, ref.y,
@@ -200,7 +204,7 @@ def test_cg_row_mean_and_restarts(group):
     mesh = pmesh.make_mesh(axis_name="rows")
     X, Y = _data(4, 56)
     kern, mean = _jax()
-    ref = jgp.fit(kern, mean, jnp.asarray(X), jnp.asarray(Y), capacity=64)
+    ref = _jfit(kern, mean, jnp.asarray(X), jnp.asarray(Y), capacity=64)
     Xp, Yp = _pad(X, Y, 64)
     k, m = _port()
     mask = (torch.arange(64) < 56).to(F64)
