@@ -1,0 +1,13 @@
+"""flush_iter_ms.lite: the median latency of the window's iterations whose
+append rebuilt the lite mirror from Linv (before the traced slice), host
+clock, ms."""
+
+import statistics
+
+from perfbench import harness
+
+
+def read(ctx):
+    ms = [1e3 * r["latency"] for r in harness.before_slice(ctx.records)
+          if r["flush"]]
+    return statistics.median(ms) if ms else None
