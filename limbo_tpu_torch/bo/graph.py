@@ -218,6 +218,20 @@ _CACHE_FIELDS = ("Kinv", "K", "Linv", "Kinv_q", "P", "ay", "u_ones",
                  "base_n_dev")
 
 
+def assign_gp(dst, src) -> None:
+    """Make dst hold src, in place (a refit copied into the tensors that
+    captured graphs read): a GP's tensors, its kernel's and mean's
+    hyperparameters and its count; a MultiGP's GPs one by one and its
+    wrapper mean.  The two have the same shapes."""
+    for a, b in zip(getattr(dst, "gps", (dst,)), getattr(src, "gps", (src,))):
+        _write_back(a, b, _GP_FIELDS)
+        _copy_buffers(a.kernel, b.kernel)
+        _copy_buffers(a.mean, b.mean)
+        a.n = b.n
+    if hasattr(src, "gps"):
+        _copy_buffers(dst.mean, src.mean)
+
+
 class BOStep:
     """One BO iteration over a GP (and its K^{-1} cache) held in place:
     ``x = propose(model, it)`` (the model is the GP, or its CachedGPView,
@@ -308,10 +322,7 @@ class BOStep:
         """Make ``gp`` (and ``cache``) the step's state by copying them into
         the step's tensors, in place (a refit, a rebuild, hp-opt between
         replays)."""
-        _write_back(self.gp, gp, _GP_FIELDS)
-        _copy_buffers(self.gp.kernel, gp.kernel)
-        _copy_buffers(self.gp.mean, gp.mean)
-        self.gp.n = gp.n
+        assign_gp(self.gp, gp)
         if cache is not None:
             _write_back(self.cache, cache, _CACHE_FIELDS)
             self.cache.base_n = cache.base_n

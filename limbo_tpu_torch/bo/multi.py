@@ -12,7 +12,18 @@ and experimental/model/gp_parego.hpp.
   the compiled ehvi2d per candidate (ehvi.hpp:128-147); here the seeds are
   one batched Rprop ascent on the differentiable EHVI, one query of all
   the seeds a step.  With q > 1 each seed is a jittered q-point batch and
-  the ascent climbs the exact joint q-EHVI.
+  the ascent climbs the exact joint q-EHVI.  The observed front is held
+  whole, as limbo's is: padded to the next multiple of FRONT_CAP rows, so
+  the ascent's shapes change only when the front crosses a bucket, and
+  every Pareto point is in the EHVI's box decomposition and is a seed.
+  (The JAX package keeps an evenly spread 64-point subset of a longer
+  front, which is another acquisition: the two agree on fronts of at most
+  64 points.)  ``Ehvi.iterate`` is one iteration, in four torch.profiler
+  spans (mo.refit, mo.front, mo.ascent, mo.eval); ``COUNTERS`` holds what
+  the last one did.  On a CUDA device at q = 1 the ascent runs as one CUDA
+  graph per front bucket (``_CapturedAscent``): eagerly it is ~25,000
+  small kernels launched from Python an iteration, whose pace the host
+  sets.
 * Nsbo (nsbo.hpp:65): a random point of the variance Pareto front of the
   NSGA-II model front.
 * Parego (parego.hpp:73, gp_parego.hpp:103): a random-weight augmented
@@ -27,12 +38,15 @@ PyTorch there.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from limbo_tpu_torch.bo.graph import Captured, assign_gp
 from limbo_tpu_torch.bo.init_designs import RandomSampling
 from limbo_tpu_torch.bo.optimizer import BOptimizer, EvaluationError
 from limbo_tpu_torch.bo.stop import MaxIterations
@@ -48,6 +62,14 @@ from limbo_tpu_torch.ops.pareto import non_dominated_mask
 from limbo_tpu_torch.utils.device import resolve_device
 
 FRONT_CAP = 64
+
+# What the last Ehvi.iterate did (read by benchmarks and tests, like
+# ops/_cuda.LAUNCHES): the observed front's size and the rows it was held
+# at, the boxes of the exact EHVI's decomposition per candidate
+# ((front_cap + 1)^(p - 1)), the seeds the ascent climbed and its steps,
+# and whether its ascent captured a new CUDA graph (1) or not (0).
+COUNTERS = {"front": 0, "front_cap": 0, "boxes": 0, "seeds": 0,
+            "ascent_steps": 0, "captured": 0}
 
 
 @dataclass
@@ -158,6 +180,61 @@ class BoMulti:
             stat(self)
 
 
+class _CapturedAscent:
+    """``Ehvi.step`` as CUDA graphs (bo/graph.py ``Captured``), one per
+    front bucket.  The graphs read a copy of the model at fixed addresses,
+    which every call overwrites in place with the refitted model
+    (``assign_gp``; a new capacity or input width starts over), and copies
+    of the front and the seeds.  On a card a bucket's first call runs the
+    ascent eagerly, captures it and replays it; later calls replay and
+    return copies of the graph's proposal and value.  As in every capture,
+    the inner optimizer must not wait on the card (the warm-up raises where
+    it does) and draws only from the generator it is handed (None here:
+    the device's default one).  On another device every call runs the
+    ascent eagerly over the same copies."""
+
+    def __init__(self, step: Callable):
+        self.step = step
+        self.model = None
+        self.graphs = {}    # front rows -> (Captured, inputs, outputs)
+
+    def _assign(self, model) -> bool:
+        """Copy ``model`` into the graphs' model in place; False (and a new
+        copy) where the two differ in shape."""
+        own = self.model
+        if own is not None and len(own.gps) == len(model.gps) and all(
+                a.x.shape == b.x.shape for a, b in zip(own.gps, model.gps)):
+            assign_gp(own, model)
+            return True
+        self.model = copy.deepcopy(model)
+        return False
+
+    def __call__(self, model, front_y, front_mask, seeds):
+        if not self._assign(model):
+            self.graphs = {}
+        inputs = (front_y, front_mask, seeds)
+        entry = self.graphs.get(front_y.shape[0])
+        fresh = entry is None
+        if fresh:
+            own, outputs = tuple(t.clone() for t in inputs), []
+
+            def body():
+                outputs[:] = self.step(self.model, *own)
+            entry = (Captured({None: body}, None, front_y.device), own,
+                     outputs)
+            self.graphs[front_y.shape[0]] = entry
+        else:
+            for t, u in zip(entry[1], inputs):
+                t.copy_(u)
+        graphs, _, outputs = entry
+        graphs.run(None)
+        captured = fresh and graphs.graphs is not None
+        if captured:
+            graphs.run(None)    # the first run warmed up and captured
+        COUNTERS["captured"] = int(captured)
+        return tuple(t.clone() for t in outputs)
+
+
 class Ehvi(BoMulti):
     """Expected-hypervolume-improvement BO (limbo Ehvi, ehvi.hpp:82).
 
@@ -175,12 +252,14 @@ class Ehvi(BoMulti):
                           else Rprop(iterations=50))
         self.q = int(q)
         self.gh_nodes = int(gh_nodes)
+        self._ref = self._tensor(self.ref)
+        self._captured = None
 
     def acquisition(self, model, front_y: torch.Tensor,
                     front_mask: torch.Tensor) -> Callable:
         """The acquisition the ascent climbs: (R, q d) seeds -> (R,); EHVI
         at q = 1, the exact q-EHVI of each (q, d) batch otherwise."""
-        ref = self._tensor(self.ref)
+        ref = self._ref
         d = model.dim_in
         if self.q == 1:
             def acq(X):
@@ -234,23 +313,69 @@ class Ehvi(BoMulti):
                 take(value, i))
 
     def padded_front(self, dim: int):
-        """The observed front padded to FRONT_CAP rows: (x, y, mask) on the
-        device; a front longer than the cap keeps an evenly spread subset
-        along objective 0."""
+        """The observed front, whole: (x, y, mask) on the device, padded to
+        FRONT_CAP * ceil(k / FRONT_CAP) rows (FRONT_CAP at least) for a
+        front of k points.  limbo climbs the EHVI over the whole observed
+        front from every Pareto point (ehvi.hpp:128-147); the buckets keep
+        the ascent's shapes fixed while the front stays inside one."""
         Xp, Yp = self.pareto_data()
-        if len(Xp) > FRONT_CAP:
-            order = np.argsort(Yp[:, 0])
-            pick = order[np.linspace(0, len(order) - 1, FRONT_CAP)
-                         .round().astype(int)]
-            Xp, Yp = Xp[pick], Yp[pick]
-        k = min(len(Xp), FRONT_CAP)
-        fx = np.zeros((FRONT_CAP, dim))
-        fx[:k] = Xp[:k]
-        fy = np.tile(self.ref, (FRONT_CAP, 1))
-        fy[:k] = Yp[:k]
-        fm = np.zeros(FRONT_CAP)
+        k = len(Xp)
+        cap = FRONT_CAP * max(1, -(-k // FRONT_CAP))
+        fx = np.zeros((cap, dim))
+        fx[:k] = Xp
+        fy = np.tile(self.ref, (cap, 1))
+        fy[:k] = Yp
+        fm = np.zeros(cap)
         fm[:k] = 1.0
+        COUNTERS.update(front=k, front_cap=cap)
         return self._tensor(fx), self._tensor(fy), self._tensor(fm)
+
+    def iterate(self, f: Callable, dim: int, generator: torch.Generator,
+                capacity: int):
+        """One iteration of the loop (ehvi.hpp:82): refit one GP per
+        objective at ``capacity`` rows, take the observed front, climb the
+        EHVI from every Pareto point, evaluate the proposal with ``f`` and
+        append it.  Returns the proposal ((d,), or (q, d) at q > 1) on the
+        host and its EHVI value on the device.  The phases are the
+        torch.profiler spans mo.refit, mo.front, mo.ascent (which ends on
+        the host's read of the proposal) and mo.eval.  At q = 1 the ascent
+        is ``step`` as CUDA graphs (``_CapturedAscent``), over a copy of the
+        model, ``ascent_model``."""
+        with record_function("mo.refit"):
+            self.update_models(capacity=capacity)
+        with record_function("mo.front"):
+            fx, fy, fm = self.padded_front(dim)
+        cap = fx.shape[0]
+        COUNTERS.update(boxes=(cap + 1) ** (self.n_objs - 1), seeds=cap,
+                        ascent_steps=getattr(self.inner_opt, "iterations",
+                                             0))
+        with record_function("mo.ascent"):
+            x_new, value = self._ascent()(self.model, fy, fm,
+                                          self.seeds(fx, generator))
+            x_new = x_new.cpu().numpy()
+        with record_function("mo.eval"):
+            for x in (x_new[None, :] if self.q == 1 else x_new):
+                self.add_sample(x, self._eval_checked(f, x))
+        self.iteration += 1
+        self._update_stats()
+        return x_new, value
+
+    def _ascent(self) -> Callable:
+        """``step`` as CUDA graphs, or ``step`` itself at q > 1 (the q-EHVI
+        copies its Gauss-Hermite grid from the host inside the step, which
+        a capture cannot hold)."""
+        if self.q != 1:
+            COUNTERS["captured"] = 0
+            return self.step
+        if self._captured is None:
+            self._captured = _CapturedAscent(self.step)
+        return self._captured
+
+    @property
+    def ascent_model(self):
+        """The model the last ascent climbed: at q = 1 the graphs' copy of
+        the refitted model, else the model itself."""
+        return self.model if self._captured is None else self._captured.model
 
     def optimize(self, f: Callable, dim: int,
                  generator: Optional[torch.Generator] = None,
@@ -262,14 +387,7 @@ class Ehvi(BoMulti):
         cap = max(64, -(-(len(self.X) + self._max_iters() * self.q)
                         // 64) * 64)
         while not self._stopped():
-            self.update_models(capacity=cap)
-            fx, fy, fm = self.padded_front(dim)
-            x_new, _ = self.step(self.model, fy, fm, self.seeds(fx, gen))
-            x_new = x_new.cpu().numpy()
-            for x in (x_new[None, :] if self.q == 1 else x_new):
-                self.add_sample(x, self._eval_checked(f, x))
-            self.iteration += 1
-            self._update_stats()
+            self.iterate(f, dim, gen, cap)
         self.update_models(capacity=cap)
         return self.pareto_data()
 

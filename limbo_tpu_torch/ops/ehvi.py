@@ -14,6 +14,11 @@ one evaluation, and is differentiable under torch.autograd (the ascent
 climbs its gradient).  Sorts are stable, as jnp.argsort is, so padded and
 tied fronts decompose as the reference's do.
 
+The Ehvi loop (bo/multi.py) hands in the whole observed front, as limbo's
+ehvi.hpp does, padded to a multiple of 64 rows with ``front_mask``: at K
+rows a candidate's 3-D decomposition has (K+1)^2 boxes and the comparison
+tensor (K+1)^2 K entries, whatever share of the rows is padding.
+
 Derivation (minimization form; maximization negates): with the front sorted
 ascending in objective 1 as (a_i, b_i), b descending, sentinels a_0 = -inf,
 b_0 = r2, a_{k+1} = r1, and the one-dimensional integral
